@@ -1,149 +1,145 @@
-"""Kernel-efficiency evidence: XLA scan vs per-step-DMA Pallas vs
-resident-Gram Pallas on the fast-blocks inner rounds.
+"""Inner-round kernel efficiency on the GPU: the XLA scan against the Pallas
+(Triton route) kernel on the same fast-blocks computation and draws.
 
-Round 3 measured the per-step-DMA kernel at ~20% of its own bandwidth
-bound; round 4 built the resident-Gram variants on the thesis that the
-per-step DMA/semaphore overhead dominates (ops/pallas_sweep.py:30-37).
-This script measures all three implementations of the SAME inner-round
-computation at the shapes the engine actually dispatches:
+For every shape the engine dispatches it prints the time of one call of
+each implementation, the time per strictly sequential step (nreps * b
+steps per call), the agreement of the two on the same draws, and the
+kernel's share of a bandwidth yardstick: each step reads one Gram row of
+every block, bytes = 4 * nreps * b^2 * nblocks, over the card's peak
+bandwidth. The chain is latency-bound (each step depends on the last), so
+that share is small by nature; it is reported to show how far the kernel
+is from the memory system, not as a target.
 
-- (b=32,  nblocks=128)  — one group of the packed-device mode (p=1M)
-- (b=128, nblocks=128)  — one group of the north-star mode (N=50k, P=2M)
-- (b=32,  nblocks=4096) — a wide flat call (per-grid-cell pipelining)
+It then times the 2-bit GEMVs that form each right-hand side (X' w) and
+update the residual (X v): the flat packed store (ops/packed.py) and the
+grouped store's bit-plane GEMVs (ops/grouped.py), in bytes/s of packed
+store read against the card's peak. These are memory-bound.
 
-Per inner rep every block must read its full (b, b) Gram tile once, so the
-bandwidth bound is bytes = 4 * nreps * b^2 * nblocks and speed-of-light
-time = bytes / HBM_BW (v5e: 819 GB/s). The resident kernel eliminates the
-per-step row DMA by holding the whole lane-group tile in VMEM — its traffic
-drops to ONE tile read per call, so at large nreps it can exceed the
-per-step bound (reported against the same per-step-traffic yardstick).
+Last, end to end: chip_smoke.py's phase A (BayesC, n=10,000 x p=50,000,
+dense, through runMCMC) with the XLA scan and with the kernel, in turns
+(XLA, kernel, kernel, XLA), in seconds with compilation subtracted.
 
-Run:  python benchmarks/kernel_efficiency.py     (real TPU)
-Committed results: benchmarks/results/kernel_efficiency_r05.md
+Run on a GPU from the repository root:  python benchmarks/kernel_efficiency.py
 """
 
 import json
 import os
+import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-HBM_BW = 819e9   # v5e
+# Peak device-memory bandwidth by jax device_kind (NVIDIA data sheets, SXM
+# parts). A device that is not listed is an error, not a default.
+PEAK_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
+
+SHAPES = (
+    # (method, b, blocks, reps per call)
+    ("abc", 128, 128, 32),       # north-star group, one sync round
+    ("abc", 128, 128, 128),      # north-star group, one full visit
+    ("abc", 24, 128, 8),         # 2-bit grouped store at n=10k
+    ("abc", 128, 23, 8),         # dense grouped at n=10k
+    ("bayesr", 128, 23, 8),
+    ("bayesr", 128, 128, 32),
+)
 
 
-def bench_case(jax, jnp, b, nblocks, nreps, iters=20):
-    import jwas_tpu.ops.pallas_sweep as ps
-    from jwas_tpu.ops import markers as mk
-
-    key = jax.random.PRNGKey(0)
-    ks = jax.random.split(key, 8)
-    dtype = jnp.float32
-    grams = jax.random.normal(ks[0], (b, b, nblocks), dtype) * 0.1
-    grams = grams + jnp.eye(b, dtype=dtype)[:, :, None] * 3.0
-    xpx = jnp.abs(jax.random.normal(ks[1], (b, nblocks), dtype)) + 3.0
-    var_eff = jnp.full((b, nblocks), 0.01, dtype)
-    log_pi = jnp.full((b, nblocks), jnp.log(0.95), dtype)
-    log_pi_c = jnp.full((b, nblocks), jnp.log(0.05), dtype)
-    alpha = jnp.zeros((b, nblocks), dtype)
-    beta = jnp.zeros((b, nblocks), dtype)
-    delta = jnp.ones((b, nblocks), jnp.int32)
-    rhs0 = jax.random.normal(ks[2], (b, nblocks), dtype)
-    us = jax.random.uniform(ks[3], (nreps * b, nblocks), dtype)
-    zs = jax.random.normal(ks[4], (nreps * b, nblocks), dtype)
-    inv_vare = 0.5
-
-    def run_xla():
-        def step(c, inp):
-            a_g, be_g, d_g, rhs_g = c
-            j, u, z = inp
-            a_j = a_g[j]
-            a_new, b_new, d_new = mk._abc_update(
-                rhs_g[j], a_j, xpx[j], inv_vare, var_eff[j],
-                log_pi[j], log_pi_c[j], u, z,
-            )
-            rhs_g = rhs_g + (a_j - a_new)[None, :] * grams[j]
-            return (a_g.at[j].set(a_new), be_g.at[j].set(b_new),
-                    d_g.at[j].set(d_new), rhs_g)
-
-        return mk._blocked_round(
-            None, step, (alpha, beta, delta.astype(dtype), rhs0), (us, zs),
-            nreps, b,
-        )
-
-    def run_pallas():
-        return ps.abc_inner_rounds_pallas(
-            grams, xpx, var_eff, log_pi, log_pi_c,
-            alpha, beta, delta, rhs0, us, zs, inv_vare, nreps=nreps,
-        )
-
-    results = {}
-    orig_pick = ps._pick_resident_lanes
-    for name, fn, force_dma in (
-        ("xla_scan", run_xla, False),
-        ("pallas_dma", run_pallas, True),
-        ("pallas_resident", run_pallas, False),
-    ):
-        if force_dma:
-            ps._pick_resident_lanes = lambda *a, **k: 0
-        else:
-            ps._pick_resident_lanes = orig_pick
-        if name == "pallas_resident" and orig_pick(nblocks, b) == 0:
-            results[name] = None
-            continue
-        try:
-            f = jax.jit(fn)
-            out = f()
-            jax.block_until_ready(out)
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                out = f()
-            jax.block_until_ready(out)
-            dt = (time.perf_counter() - t0) / iters
-            results[name] = dt
-        except Exception as e:  # noqa: BLE001
-            print(f"# {name} failed: {type(e).__name__}: {e}",
-                  file=sys.stderr)
-            results[name] = None
-        finally:
-            ps._pick_resident_lanes = orig_pick
-
-    bytes_per_call = 4.0 * nreps * b * b * nblocks
-    bound_s = bytes_per_call / HBM_BW
-    row = {"b": b, "nblocks": nblocks, "nreps": nreps,
-           "bound_us": round(bound_s * 1e6, 1)}
-    for name, dt in results.items():
-        if dt is None:
-            row[name] = None
-            continue
-        row[name] = {
-            "us": round(dt * 1e6, 1),
-            "pct_of_bound": round(100.0 * bound_s / dt, 1),
-            "updates_per_s": round(b * nblocks * nreps / dt / 1e6, 1),
-        }
-    return row
-
-
-if __name__ == "__main__":
+def gemv_cases(peak, n=12_000, p=1_048_576, b=32, gb=128):
+    """bytes/s of the 2-bit GEMVs over a p x n store (3.1 GB at the
+    defaults: the device-resident configuration of bench.py's packed
+    mode)."""
     import jax
     import jax.numpy as jnp
 
-    rows = []
-    for b, nblocks, nreps in ((32, 128, 32), (128, 128, 128),
-                              (32, 4096, 32)):
-        r = bench_case(jax, jnp, b, nblocks, nreps)
-        rows.append(r)
-        print(json.dumps(r), flush=True)
-    print("\n| shape (b x nblocks, nreps) | bound | XLA scan | Pallas "
-          "per-step DMA | Pallas resident |")
-    print("|---|---|---|---|---|")
-    for r in rows:
-        def cell(k):
-            v = r.get(k)
-            if not v:
-                return "-"
-            return (f"{v['us']}us ({v['pct_of_bound']}% of bound, "
-                    f"{v['updates_per_s']}M upd/s)")
-        print(f"| {r['b']}x{r['nblocks']}, {r['nreps']} | {r['bound_us']}us "
-              f"| {cell('xla_scan')} | {cell('pallas_dma')} | "
-              f"{cell('pallas_resident')} |")
+    import chip_smoke as cs
+    from jwas_tpu.ops import grouped as gr
+    from jwas_tpu.ops import packed as pk
+
+    bpm = -(-n // 4)
+    G = b * gb
+    key = jax.random.PRNGKey(0)
+    store = jax.random.randint(key, (p, bpm), 0, 256, jnp.int32).astype(
+        jnp.uint8)
+    means = jnp.full((p,), 1.0, jnp.float32)
+    w = jax.random.normal(jax.random.fold_in(key, 1), (n,))
+    v = jax.random.normal(jax.random.fold_in(key, 2), (p,))
+    grams = jnp.zeros((b, b, 1), jnp.float32)
+    pm = pk.PackedMarkers(store, means, None, means, grams, means)
+    gm = gr.GroupedPackedMarkers(store.reshape(p // G, G, bpm), means, None,
+                                 means, grams, means)
+    cases = {
+        "flat packed_rhs (X'w)": lambda: pk.packed_rhs(pm, w),
+        "flat packed_matvec (Xv)": lambda: pk.packed_matvec(pm, v, n_obs=n),
+        "grouped_rhs planes (X'w)": lambda: gr.grouped_rhs(
+            gm, w, has_missing=False),
+        "grouped_matvec planes (Xv)": lambda: gr.grouped_matvec(
+            gm, v, n_obs=n, has_missing=False),
+    }
+    nbytes = p * bpm + 4 * (n + p)
+    for name, fn in cases.items():
+        _, t = cs.time_call(fn)
+        print(json.dumps({
+            "gemv": name, "n": n, "p": p, "store_GB": round(p * bpm / 1e9, 3),
+            "ms": round(t * 1e3, 3), "GB_per_s": round(nbytes / t / 1e9, 1),
+            "pct_of_peak_bandwidth": round(100 * nbytes / t / peak, 1),
+        }), flush=True)
+
+
+def end_to_end():
+    import time
+
+    import chip_smoke as cs
+
+    clock = cs.CompileClock()
+    X, pheno, bv = cs.data_50k()
+    for use_pallas in (False, True, True, False):
+        c0, _ = clock.snapshot()
+        t0 = time.perf_counter()
+        out = cs.run_st(X, pheno, "BayesC", use_pallas=use_pallas)
+        wall = time.perf_counter() - t0
+        compile_s = clock.snapshot()[0] - c0
+        print(json.dumps({
+            "end_to_end": "phase A runMCMC", "kernel": use_pallas,
+            "wall_s": round(wall, 2), "compile_s": round(compile_s, 2),
+            "wall_minus_compile_s": round(wall - compile_s, 2),
+            "ebv_accuracy": round(cs.ebv_accuracy(out, bv)[0], 4),
+        }), flush=True)
+
+
+def main():
+    import jax
+
+    import chip_smoke as cs
+
+    if jax.default_backend() != "gpu":
+        sys.exit("kernel_efficiency: no GPU")
+    kind = jax.devices()[0].device_kind
+    if kind not in PEAK_BYTES_PER_S:
+        raise KeyError(f"no peak bandwidth recorded for device {kind!r}")
+    peak = PEAK_BYTES_PER_S[kind]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"# card: {card}; device_kind={kind}; peak {peak / 1e12:.2f} TB/s")
+    for method, b, nb, reps in SHAPES:
+        t_x, t_k, err, agree = cs.compare_inner_rounds(method, b, nb, reps)
+        steps = reps * b
+        bound = 4.0 * reps * b * b * nb / peak
+        print(json.dumps({
+            "method": method, "b": b, "blocks": nb, "reps": reps,
+            "xla_us": round(t_x * 1e6, 1), "kernel_us": round(t_k * 1e6, 1),
+            "xla_us_per_step": round(t_x / steps * 1e6, 3),
+            "kernel_us_per_step": round(t_k / steps * 1e6, 3),
+            "speedup": round(t_x / t_k, 2),
+            "kernel_pct_of_bandwidth_bound": round(100 * bound / t_k, 2),
+            "max_rel_err": err, "delta_agreement": agree,
+        }), flush=True)
+    gemv_cases(peak)
+    end_to_end()
+
+
+if __name__ == "__main__":
+    main()

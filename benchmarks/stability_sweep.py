@@ -14,7 +14,7 @@ and reports the vare trajectory (start -> mid -> end), max |alpha|, and the
 EBV accuracy against simulated truth. Divergence is unambiguous: vare and
 |alpha| blow up by orders of magnitude and accuracy collapses.
 
-Run:  python benchmarks/stability_sweep.py          (TPU or CPU; slow on CPU)
+Run:  python benchmarks/stability_sweep.py          (GPU, or CPU: slow)
 Committed results: benchmarks/results/stability_sweep_r05.md
 """
 

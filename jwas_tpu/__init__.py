@@ -1,7 +1,7 @@
-"""jwas_tpu — a TPU-native Bayesian whole-genome regression engine in JAX.
+"""jwas_tpu — a Bayesian whole-genome regression engine in JAX.
 
 A from-scratch reimplementation of the capabilities of JWAS.jl (reference:
-reworkhow/JWAS.jl) designed for TPU hardware: the per-marker Gibbs sweep of the
+reworkhow/JWAS.jl) for accelerators: the per-marker Gibbs sweep of the
 Bayesian Alphabet runs as a blocked, vectorized XLA/Pallas computation; the
 n x p genotype matrix is sharded column-wise over a device mesh; chains run in
 parallel across replicas.

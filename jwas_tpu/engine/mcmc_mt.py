@@ -178,7 +178,8 @@ def make_mt_step(cfg: MTEngineCfg):
         vc = state.vc
         sol = state.sol
         ycorr_plus = ycorr + jnp.einsum("tnk,k->tn", data.W3, sol)
-        LHS = jnp.einsum("ank,nab,bnl->kl", data.W3, Ri_n, data.W3)
+        LHS = jnp.einsum("ank,nab,bnl->kl", data.W3, Ri_n, data.W3,
+                         precision=mk.full_precision(data.W3.dtype))
         for g, grp in enumerate(cfg.re_groups):
             Gi = jnp.linalg.inv(vc[g])
             q = grp.n_levels
@@ -693,7 +694,7 @@ def build_mt_data_and_state(ws: Workspace, opts, dtype):
         else:
             X = jnp.asarray(ws.geno.genotypes, dtype)
             xw = X if ws.rinv is None else X * rinv[:, None]
-            xpx = jnp.einsum("np,np->p", xw, X)
+            xpx = jnp.sum(xw * X, axis=0)
             grams = jnp.zeros((0, 0, 0), dtype)
             valid = jnp.ones((p,), dtype)
             p_pad = p

@@ -61,22 +61,26 @@ class MCMCOptions:
                                         # sampling loop under
                                         # <output_folder>/profile
     starting_value: object = None
-    mesh: object = None                 # jax.sharding.Mesh for multi-chip runs
+    mesh: object = None                 # jax.sharding.Mesh for multi-device runs
     memory_guard: str = "warn"          # "error" | "warn" | "off" (C24)
     host_offload_genotypes: object = "auto"  # keep the 2-bit packed store in
                                         # pinned HOST memory and stream chunks
-                                        # (out-of-core at >HBM scale); "auto"
-                                        # offloads when the store exceeds 60%%
-                                        # of the device memory budget
+                                        # (out of core); "auto" offloads when
+                                        # the store exceeds 60% of the device
+                                        # memory budget and the backend can
+                                        # stage pinned-host memory; True
+                                        # where it cannot raises
     memory_guard_ratio: float = 0.9
     n_chains: int = 1                   # parallel chains (vmapped; P6 analogue)
     output_chain_samples: bool = False  # with n_chains>1: also write the full
                                         # per-parameter sample-file set for
                                         # EVERY chain under chain_<k>/
                                         # (feeds PSRF_per_parameter)
-    use_pallas: object = "auto"         # Pallas kernel for the blocked sweeps:
-                                        # "auto" = on for TPU backends when the
-                                        # block shape is kernel-eligible
+    use_pallas: object = "auto"         # compiled inner-round kernel for the
+                                        # blocked sweeps (ops/pallas_sweep.py):
+                                        # "auto" = where the backend has one
+                                        # (GPU, one device); True where none
+                                        # exists raises
     sync_every: Optional[int] = None    # inner reps between residual syncs in
                                         # the blocked sweeps (default min(8, nreps))
     independent_blocks: bool = False    # reference's fully-amortized approximate

@@ -18,9 +18,9 @@ After this setup the ordinary complete-data MCMC engine runs unchanged on the
 augmented model: every phenotyped individual has (imputed) marker covariates,
 and the extra J + eps effects absorb imputation bias and error.
 
-TPU note: the imputation solve is a host-side sparse direct solve (SciPy
+Device note: the imputation solve is a host-side sparse direct solve (SciPy
 splu) done once before compilation; the imputed dense marker matrix then
-follows the standard device path (blocked Gibbs sweeps on the MXU).
+follows the standard device path (blocked Gibbs sweeps).
 """
 
 from __future__ import annotations

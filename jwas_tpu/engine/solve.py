@@ -13,6 +13,7 @@ import pandas as pd
 from jwas_tpu.engine.setup import MCMCOptions, prepare_workspace
 from jwas_tpu.models.model import Model
 from jwas_tpu.ops.location import gauss_seidel, gibbs_solver, jacobi
+from jwas_tpu.utils.backend import enable_compile_cache
 
 
 def solve(
@@ -39,6 +40,7 @@ def solve(
     (joint perturbation-optimization draws, ops/sparse_mme.py); it scales
     to >= 1e5 levels where the dense (K, K) LHS cannot exist.
     """
+    enable_compile_cache()
     opts = MCMCOptions(
         heterogeneous_residuals=heterogeneous_residuals,
         double_precision=double_precision,

@@ -111,10 +111,11 @@ class EngineCfg:
     has_missing_codes: bool = True  # 2-bit store contains code 3 (missing);
                                     # False skips the mask matmuls in the
                                     # plane-decomposed GEMVs
-    prefetch: bool = False    # grouped sweeps: software-pipeline the H2D
-                              # stage of group g+1 under group g's compute
+    prefetch: bool = False    # grouped sweeps: software-pipeline the host-
+                              # to-device stage of group g+1 under group g's
+                              # compute
                               # (costs one extra resident group tile)
-    group_blocks: int = 0     # dense blocked sweeps: lane-group size for the
+    group_blocks: int = 0     # dense blocked sweeps: blocks per group for the
                               # group-sequential schedule (0 = flat). Set when
                               # the flat stale set b*nblocks would exceed
                               # STALE_FRACTION*n (ops/markers.py:

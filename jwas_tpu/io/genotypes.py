@@ -9,10 +9,10 @@ src/1.JWAS/src/markers/readgenotypes.jl):
   allele frequencies and sum(2 p q).
 - For GBLUP a genomic relationship matrix is built (or accepted directly).
 
-TPU-minded additions:
+Device-minded additions:
 - `storage="int8"` keeps the raw (uncentered) genotype scores as int8 and the
-  column means separately, so the marker matrix can live in HBM at 1/4 the
-  footprint and feed int8 MXU matmuls; centered products are recovered exactly
+  column means separately, so the marker matrix can live in device memory at
+  1/4 the footprint and feed integer matmuls; centered products are recovered exactly
   via rank-1 mean corrections. This is the dense precursor of the reference's
   2-bit packed streaming store (streaming_genotypes.jl).
 """

@@ -1,12 +1,12 @@
-"""2-bit packed marker store (the reference streaming backend, TPU-era).
+"""2-bit packed marker store (the reference's streaming backend).
 
 From-scratch counterpart of the out-of-core 2-bit genotype backend
 (reference: src/1.JWAS/src/markers/streaming_genotypes.jl): marker-major
 2-bit codes (0/1/2 dosage, 3 = missing -> marker mean), a JSON manifest
 sidecar, atomic publish, and a disk/memory guard. Differences by design:
 
-- the packed matrix is HBM-resident on TPU and decoded to centered float32
-  tiles on device (jwas_tpu.ops.packed), instead of the reference's
+- the packed matrix is resident in device memory and decoded to centered
+  float32 tiles on device (jwas_tpu.ops.packed), instead of the reference's
   decode-one-marker-at-a-time CPU loop;
 - the conversion hot loops (stats scan, packing, decode) run in C++
   (native/packer.cpp) loaded through ctypes, with a numpy fallback when the
@@ -14,7 +14,7 @@ sidecar, atomic publish, and a disk/memory guard. Differences by design:
 
 At p = 1M markers and n = 500k individuals the packed store is 125 GB vs
 2 TB dense float32 (memory_usage.md:55-80) — shard the marker axis over
-chips to fit HBM.
+devices, or keep the store in pinned host memory (ops/grouped.py).
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ import ctypes
 import json
 import os
 import subprocess
-import tempfile
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -32,6 +31,16 @@ import pandas as pd
 
 _LIB = None
 _LIB_TRIED = False
+
+
+def native_build_dir() -> str:
+    """`<checkout>/build`, where the native helpers (native/*.cpp) are
+    compiled on first use: private to the checkout, created with mode 0700
+    (a shared temporary directory would let another user plant a library)."""
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+    path = os.path.join(root, "build")
+    os.makedirs(path, mode=0o700, exist_ok=True)
+    return path
 
 
 def _native_lib() -> Optional[ctypes.CDLL]:
@@ -44,15 +53,14 @@ def _native_lib() -> Optional[ctypes.CDLL]:
     src = os.path.abspath(src)
     if not os.path.exists(src):
         return None
-    cache = os.path.join(tempfile.gettempdir(), "jwas_tpu_native")
-    os.makedirs(cache, exist_ok=True)
-    lib_path = os.path.join(cache, "libjwaspack.so")
+    lib_path = os.path.join(native_build_dir(), "libjwaspack.so")
     if (not os.path.exists(lib_path)
             or os.path.getmtime(lib_path) < os.path.getmtime(src)):
-        cmd = ["g++", "-O3", "-shared", "-fPIC", src, "-o", lib_path + ".tmp"]
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-shared", "-fPIC", src, "-o", tmp]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            os.replace(lib_path + ".tmp", lib_path)
+            os.replace(tmp, lib_path)
         except Exception:
             return None
     try:

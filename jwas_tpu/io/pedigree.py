@@ -168,28 +168,27 @@ def _native_ped_lib():
     import ctypes
     import os
     import subprocess
-    import tempfile
+
+    from jwas_tpu.io.packed import native_build_dir
 
     src = os.path.abspath(os.path.join(
         os.path.dirname(__file__), "..", "..", "native", "pedigree.cpp"
     ))
     if not os.path.exists(src):
         return None
-    cache = os.path.join(tempfile.gettempdir(), "jwas_tpu_native")
-    os.makedirs(cache, exist_ok=True)
-    lib_path = os.path.join(cache, "libjwasped.so")
+    lib_path = os.path.join(native_build_dir(), "libjwasped.so")
     if (not os.path.exists(lib_path)
             or os.path.getmtime(lib_path) < os.path.getmtime(src)):
         # OpenMP build first; a toolchain without it falls back to the
         # sequential build (identical results, single-threaded)
         built = False
         for flags in (["-O3", "-fopenmp"], ["-O3"]):
-            cmd = ["g++", *flags, "-shared", "-fPIC", src,
-                   "-o", lib_path + ".tmp"]
+            tmp = f"{lib_path}.{os.getpid()}.tmp"
+            cmd = ["g++", *flags, "-shared", "-fPIC", src, "-o", tmp]
             try:
                 subprocess.run(cmd, check=True, capture_output=True,
                                timeout=120)
-                os.replace(lib_path + ".tmp", lib_path)
+                os.replace(tmp, lib_path)
                 built = True
                 break
             except Exception:

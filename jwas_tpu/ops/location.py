@@ -5,8 +5,8 @@ src/1.JWAS/src/iterative_solver/solver.jl). The mixed-model-equation LHS is a
 dense (K, K) device array here: location-effect counts are typically orders of
 magnitude below marker counts, and a dense representation lets the sequential
 single-site pass compile to one `lax.scan` with an O(K) fused row product per
-step (XLA handles sparse MMEs poorly; the dense form is the TPU-native choice
-for K up to ~10^4, see SURVEY.md section 7 hard-part 4).
+step (XLA handles sparse MMEs poorly; the dense form is the accelerator's
+choice for K up to ~10^4, see SURVEY.md section 7 hard-part 4).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Single-trait marker-effect Gibbs samplers (the Bayesian Alphabet hot loops).
 
-From-scratch TPU-native re-design of the reference marker samplers (reference:
+From-scratch accelerator re-design of the reference marker samplers (reference:
 src/1.JWAS/src/markers/BayesianAlphabet/BayesABC.jl, BayesC0L.jl, BayesR.jl,
 tools4genotypes.jl:237-275). The math per marker update is identical; the
 execution model is rebuilt for XLA:
@@ -52,6 +52,52 @@ import jax.numpy as jnp
 BAYESR_GAMMA = (0.0, 0.01, 0.1, 1.0)
 
 
+def full_precision(dtype):
+    """The `precision` of matrix products whose float32 result must be a
+    float32 result: the set-up products every conditional posterior reads
+    (Gram tiles, W'R^-1 W) and the multi-trait GEMMs.
+
+    A GPU runs float32 products in TF32 (about three decimal digits) by
+    default, and `Precision.HIGHEST` does not buy float32 for a batched
+    product there: on an H100 the batched Gram einsum at HIGHEST missed
+    float64 by 1.3e-4 of the Cauchy-Schwarz scale, against 8e-6 with the
+    float32 algorithm (PERF.md). Other types (float64 under
+    double_precision) take HIGHEST, which is exact for them."""
+    if jnp.dtype(dtype) == jnp.float32:
+        return jax.lax.DotAlgorithmPreset.F32_F32_F32
+    return jax.lax.Precision.HIGHEST
+
+
+def fdot(a, b):
+    """a @ b at full_precision: the GEMVs of the sweeps (X' w, X v). They
+    are matrix-vector products, but an H100 still runs X' w in TF32 at the
+    default precision (1.4e-5 of ||x_j|| ||w||, against 3e-9 for X v;
+    PERF.md). They are memory-bound, so float32 costs nothing."""
+    return jnp.matmul(a, b, precision=full_precision(jnp.result_type(a, b)))
+
+
+def gram_tiles(X, Xw, obs_chunk: int = 128):
+    """j-major block Gram tiles of (n, k, b) X against weighted Xw:
+    out[j, r, i] = sum_n X[n, i, j] * Xw[n, i, r], shape (b, b, k).
+
+    A matrix product sums its n terms into one running float32 total, and
+    for a rare-allele marker (many equal small terms) the rounding is
+    biased: about n * 1.4e-8 relative on an H100 (2.8e-5 at 2,048 rows,
+    PERF.md). So the product sums chunks of `obs_chunk` rows, and the
+    chunk totals are added by a reduction. With obs_chunk = b = 128 the
+    chunk totals take as much memory as the (n, k, b) input."""
+    n = X.shape[0]
+    prec = full_precision(X.dtype)
+    nc = -(-n // obs_chunk)
+    if nc == 1:
+        return jnp.einsum("nij,nir->jri", X, Xw, precision=prec)
+    rows = -(-n // nc)
+    pad = ((0, nc * rows - n), (0, 0), (0, 0))
+    chunks = lambda a: jnp.pad(a, pad).reshape(nc, rows, *a.shape[1:])  # noqa: E731
+    return jnp.einsum("cnij,cnir->cjri", chunks(X), chunks(Xw),
+                      precision=prec).sum(axis=0)
+
+
 class MarkerBlocks(NamedTuple):
     """Static per-chain marker data in blocked layout.
 
@@ -60,8 +106,8 @@ class MarkerBlocks(NamedTuple):
     grams:  (b, b, nblocks) block Gram matrices, **j-major**: grams[j, r, i] =
             (X_i' R^-1 X_i)[r, j]. The within-block marker index j is the
             leading axis so each sequential Gibbs step slices one contiguous
-            (b, nblocks) slab; the block axis i is the minor (lane) dimension
-            so the per-step arithmetic vectorizes across all blocks in flight.
+            (b, nblocks) slab; the block axis i is the minor dimension so
+            the per-step arithmetic vectorizes across all blocks in flight.
     valid:  (p_pad,) 1.0 for real markers, 0.0 for padding.
     """
 
@@ -73,10 +119,11 @@ class MarkerBlocks(NamedTuple):
 
 def default_block_size(n_obs: int) -> int:
     """Default fast-blocks block size from the number of OBSERVATIONS:
-    the reference uses floor(sqrt(nObs)) (JWAS.jl:294-296). On TPU the block
-    axis is a VMEM tile dimension, so the value is rounded up to a multiple
-    of 128 sublanes (min 128) — a deliberate divergence for small n where the
-    reference would pick a tiny block; the sampler is valid for any b."""
+    the reference uses floor(sqrt(nObs)) (JWAS.jl:294-296), rounded up here
+    to a multiple of 128 (min 128) — a deliberate divergence for small n
+    where the reference would pick a tiny block. The sampler is valid for
+    any b; b also sets how stale the parallel block updates are, so the
+    rounding is kept as the geometry the schedule was tuned at."""
     b = int(math.sqrt(max(n_obs, 1)))
     return max(128, ((b + 127) // 128) * 128)
 
@@ -96,14 +143,13 @@ def build_marker_blocks(X, rinv=None, block_size=None, gram_chunk=64) -> MarkerB
         X = jnp.pad(X, ((0, 0), (0, p_pad - p)))
     w = rinv if rinv is not None else None
     Xw = X if w is None else X * w[:, None]
-    xpx = jnp.einsum("np,np->p", Xw, X)
+    xpx = jnp.sum(Xw * X, axis=0)
     grams = []
     for c0 in range(0, nblocks, gram_chunk):
         c1 = min(c0 + gram_chunk, nblocks)
         Xr = X[:, c0 * b : c1 * b].reshape(n, c1 - c0, b)
         Xrw = Xr if w is None else Xr * w[:, None, None]
-        # j-major layout: out[j, r, i] = sum_n Xr[n,i,j] * Xrw[n,i,r]
-        grams.append(jnp.einsum("nij,nir->jri", Xr, Xrw))
+        grams.append(gram_tiles(Xr, Xrw))
     grams = jnp.concatenate(grams, axis=2)
     valid = (jnp.arange(p_pad) < p).astype(X.dtype)
     return MarkerBlocks(X=X, xpx=xpx, grams=grams, valid=valid)
@@ -194,15 +240,84 @@ def _bayesr_update(rhs_j, alpha_j, xpx_j, inv_vare, sigma_sq, log_pi_j, gumbel, 
 # ---------------------------------------------------------------------------
 
 
-def _blocked_round(md: MarkerBlocks, step_fn, carry0, keys_shape_draws, nreps, b):
+def _blocked_round(step_fn, carry0, draws, nreps, b):
     """Run nreps * b inner steps of `step_fn` over carry0; j cycles 0..b-1."""
     idx = jnp.tile(jnp.arange(b), nreps)
 
     def scan_body(carry, inp):
         return step_fn(carry, inp), None
 
-    carry, _ = jax.lax.scan(scan_body, carry0, (idx,) + keys_shape_draws, unroll=4)
+    carry, _ = jax.lax.scan(scan_body, carry0, (idx,) + draws, unroll=4)
     return carry
+
+
+def abc_inner_rounds(grams, xpx_b, var_eff_b, log_pi, log_pi_comp, alpha_b,
+                     beta_b, delta_b, rhs0, us, zs, inv_vare,
+                     use_pallas: bool = False, interpret: bool = False):
+    """The spike-slab within-block chain of one sync round on every block.
+
+    grams: (b, b, nblocks) j-major; state/tiles: (b, nblocks); us/zs:
+    (reps*b, nblocks) pre-drawn uniforms and normals. use_pallas runs the
+    compiled GPU kernel (ops/pallas_sweep.py) on the same draws; interpret
+    runs that kernel in the Pallas interpreter (tests only).
+    Returns (alpha_b, beta_b, delta_b, rhs_b)."""
+    b = grams.shape[0]
+    if use_pallas:
+        from jwas_tpu.ops.pallas_sweep import abc_inner_rounds_pallas
+
+        return abc_inner_rounds_pallas(
+            grams, xpx_b, var_eff_b, log_pi, log_pi_comp, alpha_b, beta_b,
+            delta_b, rhs0, us, zs, inv_vare, nreps=us.shape[0] // b,
+            interpret=interpret,
+        )
+
+    def step(carry, inp):
+        a_b, be_b, d_b, rhs_b = carry
+        j, u, z = inp
+        a_j = a_b[j]
+        a_new, b_new, d_new = _abc_update(
+            rhs_b[j], a_j, xpx_b[j], inv_vare, var_eff_b[j],
+            log_pi[j], log_pi_comp[j], u, z,
+        )
+        rhs_b = rhs_b + (a_j - a_new)[None, :] * grams[j]
+        return (a_b.at[j].set(a_new), be_b.at[j].set(b_new),
+                d_b.at[j].set(d_new), rhs_b)
+
+    return _blocked_round(step, (alpha_b, beta_b, delta_b, rhs0), (us, zs),
+                          us.shape[0] // b, b)
+
+
+def bayesr_inner_rounds(grams, xpx_b, log_pi_b, alpha_b, delta_b, rhs0,
+                        inv_vare, sigma_sq, kg, kz, reps: int,
+                        use_pallas: bool = False, interpret: bool = False):
+    """The BayesR within-block chain of one sync round on every block.
+
+    log_pi_b: (b, nblocks, 4) log class priors; the Gumbel panels and the
+    normals are drawn from (kg, kz) identically on both implementations.
+    Returns (alpha_b, delta_b, rhs_b)."""
+    b, _, nblocks = grams.shape
+    if use_pallas:
+        from jwas_tpu.ops.pallas_sweep import bayesr_inner_rounds_pallas
+
+        return bayesr_inner_rounds_pallas(
+            grams, xpx_b, log_pi_b, alpha_b, delta_b, rhs0, inv_vare,
+            sigma_sq, kg, kz, nreps=reps, interpret=interpret,
+        )
+    dtype = rhs0.dtype
+    gum = jax.random.gumbel(kg, (reps * b, nblocks, 4), dtype=dtype)
+    zs = jax.random.normal(kz, (reps * b, nblocks), dtype=dtype)
+
+    def step(carry, inp):
+        a_b, d_b, rhs_b = carry
+        j, g, z = inp
+        a_j = a_b[j]
+        a_new, k_new = _bayesr_update(
+            rhs_b[j], a_j, xpx_b[j], inv_vare, sigma_sq, log_pi_b[j], g, z
+        )
+        rhs_b = rhs_b + (a_j - a_new)[None, :] * grams[j]
+        return (a_b.at[j].set(a_new), d_b.at[j].set(k_new), rhs_b)
+
+    return _blocked_round(step, (alpha_b, delta_b, rhs0), (gum, zs), reps, b)
 
 
 def resolve_sync_every(nreps: int, sync_every) -> int:
@@ -248,15 +363,18 @@ def _from_jmajor(x):
     return x.T.reshape(-1)
 
 
-@partial(jax.jit, static_argnames=("nreps", "sync_every"))
+@partial(jax.jit, static_argnames=("nreps", "sync_every", "use_pallas",
+                                   "interpret"))
 def sweep_blocks_abc(md: MarkerBlocks, alpha, beta, delta, ycorr, rinv, vare,
-                     var_eff, pi, key, nreps: int = 1, sync_every=None):
+                     var_eff, pi, key, nreps: int = 1, sync_every=None,
+                     use_pallas: bool = False, interpret: bool = False):
     """Fast-blocks BayesA/B/C sweep, all blocks in parallel.
 
     alpha/beta: (p_pad,); delta: (p_pad,) int32; ycorr: (n,);
     var_eff: scalar (BayesC) or (p_pad,) (BayesB); pi: (p_pad,) P(excluded).
     sync_every: inner reps between exact residual reconciliations (None =>
     all nreps run against a frozen residual, the fully-amortized mode).
+    use_pallas/interpret: see abc_inner_rounds.
     Returns (alpha, beta, delta, ycorr).
     """
     b, _, nblocks = md.grams.shape
@@ -270,34 +388,19 @@ def sweep_blocks_abc(md: MarkerBlocks, alpha, beta, delta, ycorr, rinv, vare,
     log_pi_comp = _to_jmajor(jnp.log1p(-pi_c + 1e-12), nblocks, b)
     xpx_b = _to_jmajor(md.xpx, nblocks, b)
 
-    def step(carry, inp):
-        alpha_b, beta_b, delta_b, rhs_b = carry
-        j, u, z = inp
-        a_j = alpha_b[j]
-        a_new, b_new, d_new = _abc_update(
-            rhs_b[j], a_j, xpx_b[j], inv_vare, var_eff_b[j],
-            log_pi[j], log_pi_comp[j], u, z,
-        )
-        rhs_b = rhs_b + (a_j - a_new)[None, :] * md.grams[j]
-        return (
-            alpha_b.at[j].set(a_new),
-            beta_b.at[j].set(b_new),
-            delta_b.at[j].set(d_new),
-            rhs_b,
-        )
-
     def round_fn(stt, kr, reps):
         alpha_b, beta_b, delta_b, ycorr = stt
         w = ycorr if rinv is None else rinv * ycorr
-        rhs0 = _to_jmajor(md.X.T @ w, nblocks, b)
+        rhs0 = _to_jmajor(fdot(md.X.T, w), nblocks, b)
         ku, kz = jax.random.split(kr)
         us = jax.random.uniform(ku, (reps * b, nblocks), dtype=dtype)
         zs = jax.random.normal(kz, (reps * b, nblocks), dtype=dtype)
         alpha_start = alpha_b
-        alpha_b, beta_b, delta_b, _ = _blocked_round(
-            md, step, (alpha_b, beta_b, delta_b, rhs0), (us, zs), reps, b
+        alpha_b, beta_b, delta_b, _ = abc_inner_rounds(
+            md.grams, xpx_b, var_eff_b, log_pi, log_pi_comp, alpha_b, beta_b,
+            delta_b, rhs0, us, zs, inv_vare, use_pallas, interpret,
         )
-        ycorr = ycorr + md.X @ _from_jmajor(alpha_start - alpha_b)
+        ycorr = ycorr + fdot(md.X, _from_jmajor(alpha_start - alpha_b))
         return (alpha_b, beta_b, delta_b, ycorr)
 
     alpha_b, beta_b, delta_b, ycorr = _sync_rounds(
@@ -333,11 +436,11 @@ def sweep_blocks_c0l(md: MarkerBlocks, alpha, ycorr, rinv, vare, var_eff,
     def round_fn(stt, kr, reps):
         alpha_b, ycorr = stt
         w = ycorr if rinv is None else rinv * ycorr
-        rhs0 = _to_jmajor(md.X.T @ w, nblocks, b)
+        rhs0 = _to_jmajor(fdot(md.X.T, w), nblocks, b)
         zs = jax.random.normal(kr, (reps * b, nblocks), dtype=dtype)
         alpha_start = alpha_b
-        alpha_b, _ = _blocked_round(md, step, (alpha_b, rhs0), (zs,), reps, b)
-        ycorr = ycorr + md.X @ _from_jmajor(alpha_start - alpha_b)
+        alpha_b, _ = _blocked_round(step, (alpha_b, rhs0), (zs,), reps, b)
+        ycorr = ycorr + fdot(md.X, _from_jmajor(alpha_start - alpha_b))
         return (alpha_b, ycorr)
 
     alpha_b, ycorr = _sync_rounds(
@@ -346,13 +449,16 @@ def sweep_blocks_c0l(md: MarkerBlocks, alpha, ycorr, rinv, vare, var_eff,
     return _from_jmajor(alpha_b), ycorr
 
 
-@partial(jax.jit, static_argnames=("nreps", "sync_every"))
+@partial(jax.jit, static_argnames=("nreps", "sync_every", "use_pallas",
+                                   "interpret"))
 def sweep_blocks_bayesr(md: MarkerBlocks, alpha, delta, ycorr, rinv, vare,
-                        sigma_sq, pi, key, nreps: int = 1, sync_every=None):
+                        sigma_sq, pi, key, nreps: int = 1, sync_every=None,
+                        use_pallas: bool = False, interpret: bool = False):
     """Fast-blocks BayesR sweep (blocked form of BayesR.jl:99-193).
 
     pi: (p_pad, 4) per-marker class priors (broadcast the global pi in setup;
     padded rows must be [1,0,0,0]). delta: (p_pad,) int32 class labels.
+    use_pallas/interpret: see bayesr_inner_rounds.
     """
     b, _, nblocks = md.grams.shape
     dtype = ycorr.dtype
@@ -363,28 +469,17 @@ def sweep_blocks_bayesr(md: MarkerBlocks, alpha, delta, ycorr, rinv, vare,
     )  # (b, nblocks, 4)
     xpx_b = _to_jmajor(md.xpx, nblocks, b)
 
-    def step(carry, inp):
-        alpha_b, delta_b, rhs_b = carry
-        j, g, z = inp
-        a_j = alpha_b[j]
-        a_new, k_new = _bayesr_update(
-            rhs_b[j], a_j, xpx_b[j], inv_vare, sigma_sq, log_pi[j], g, z
-        )
-        rhs_b = rhs_b + (a_j - a_new)[None, :] * md.grams[j]
-        return (alpha_b.at[j].set(a_new), delta_b.at[j].set(k_new), rhs_b)
-
     def round_fn(stt, kr, reps):
         alpha_b, delta_b, ycorr = stt
         w = ycorr if rinv is None else rinv * ycorr
-        rhs0 = _to_jmajor(md.X.T @ w, nblocks, b)
+        rhs0 = _to_jmajor(fdot(md.X.T, w), nblocks, b)
         kg, kz = jax.random.split(kr)
-        gum = jax.random.gumbel(kg, (reps * b, nblocks, 4), dtype=dtype)
-        zs = jax.random.normal(kz, (reps * b, nblocks), dtype=dtype)
         alpha_start = alpha_b
-        alpha_b, delta_b, _ = _blocked_round(
-            md, step, (alpha_b, delta_b, rhs0), (gum, zs), reps, b
+        alpha_b, delta_b, _ = bayesr_inner_rounds(
+            md.grams, xpx_b, log_pi, alpha_b, delta_b, rhs0, inv_vare,
+            sigma_sq, kg, kz, reps, use_pallas, interpret,
         )
-        ycorr = ycorr + md.X @ _from_jmajor(alpha_start - alpha_b)
+        ycorr = ycorr + fdot(md.X, _from_jmajor(alpha_start - alpha_b))
         return (alpha_b, delta_b, ycorr)
 
     alpha_b, delta_b, ycorr = _sync_rounds(
@@ -497,12 +592,12 @@ def sweep_gblup(L, D, alpha, ycorr, rinv, vare, var_a, key):
     """GBLUP pseudo-marker update: y = mu + L alpha, var(alpha_i) = D_i var_a."""
     dtype = ycorr.dtype
     rv = jnp.ones_like(ycorr) if rinv is None else rinv
-    ycorr = ycorr + L @ alpha
+    ycorr = ycorr + fdot(L, alpha)
     lhs = rv + vare / (var_a * D)
-    mean = (L.T @ (rv * ycorr)) / lhs
+    mean = fdot(L.T, rv * ycorr) / lhs
     z = jax.random.normal(key, alpha.shape, dtype=dtype)
     alpha_new = mean + z * jnp.sqrt(vare / lhs)
-    ycorr = ycorr - L @ alpha_new
+    ycorr = ycorr - fdot(L, alpha_new)
     return alpha_new, ycorr
 
 
@@ -515,7 +610,7 @@ def sweep_gblup(L, D, alpha, ycorr, rinv, vare, var_a, key):
 # even with shallow schedules; benchmarks/results/stability_sweep_r05.md).
 # The packed/out-of-core path solved this with the grouped store
 # (ops/grouped.py); this wrapper brings the same schedule to dense
-# MarkerBlocks: lane-groups of blocks are visited SEQUENTIALLY (group g+1
+# MarkerBlocks: groups of blocks are visited SEQUENTIALLY (group g+1
 # sees the residual updated by group g), so the parallel-stale set per sync
 # round is b * group_blocks, capped by grouped.STALE_FRACTION.
 # ---------------------------------------------------------------------------
@@ -523,7 +618,7 @@ def sweep_gblup(L, D, alpha, ycorr, rinv, vare, var_a, key):
 
 def grouped_dense_sweep(call_group, md: MarkerBlocks, states, ycorr, key,
                         group_blocks: int):
-    """Walk lane-groups of a dense MarkerBlocks sequentially.
+    """Walk groups of blocks of a dense MarkerBlocks sequentially.
 
     call_group(md_g, states_g, ycorr, g, key_g) -> (states_g_out, ycorr):
     runs the flat blocked sweep on one group's sub-MarkerBlocks. `states` is
@@ -567,8 +662,9 @@ def grouped_dense_sweep(call_group, md: MarkerBlocks, states, ycorr, key,
 
 
 def stable_group_blocks(n_obs: int, b: int, nblocks: int) -> int:
-    """Largest lane-group (preferring the 128 kernel quantum) whose stale
-    set b*gb honors grouped.STALE_FRACTION * n; 0 = flat sweep is fine."""
+    """Largest group of blocks (preferring multiples of 128, the geometry
+    the schedule was tuned at) whose stale set b*gb honors
+    grouped.STALE_FRACTION * n; 0 = flat sweep is fine."""
     from jwas_tpu.ops.grouped import STALE_FRACTION, pick_group_blocks
 
     cap = max(1, int(STALE_FRACTION * n_obs) // b)

@@ -1,13 +1,13 @@
 """Multi-trait marker-effect Gibbs samplers.
 
-From-scratch TPU-native re-design of the reference multi-trait samplers
+From-scratch accelerator re-design of the reference multi-trait samplers
 (reference: src/1.JWAS/src/markers/BayesianAlphabet/MTBayesABC.jl,
 MTBayesC0L.jl, GBLUP.jl:52-72; method of Cheng et al. 2018, Genetics 209).
 
 - **Sampler I** (`mt_abc_*_I`): one trait's inclusion indicator at a time
   (MTBayesABC.jl:57-127). The trait loop (t small, static) is unrolled; the
   marker loop is a `lax.scan`; in blocked form every block advances in
-  parallel along the lane axis exactly like the single-trait sweeps.
+  parallel along the block axis exactly like the single-trait sweeps.
 - **Sampler II** (`mt_abc_*_II`): joint update over all 2^t inclusion states
   with per-state precision solves (MTBayesABC.jl:129-210).
 - **MT BayesL / RR-BLUP** (`mt_c0l_*`): within-marker sequential trait Gibbs
@@ -32,6 +32,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from jwas_tpu.ops.markers import full_precision
 from jwas_tpu.ops.markers import MarkerBlocks
 
 
@@ -205,7 +206,9 @@ def mt_abc_blocks_I(md: MarkerBlocks, alpha, beta, delta, ycorr, rinv, vare,
     def round_fn(stt, kr, reps):
         alpha_j, beta_j, delta_j, ycorr = stt
         w_r = ycorr if rinv is None else ycorr * rinv[None, :]
-        rhs0 = _mt_to_j(jnp.einsum("np,tn->tp", md.X, w_r), nblocks, b)
+        rhs0 = _mt_to_j(jnp.einsum("np,tn->tp", md.X, w_r,
+                                   precision=full_precision(dtype)),
+                        nblocks, b)
         ku, kz = jax.random.split(kr)
         us = jax.random.uniform(ku, (reps * b, t, nblocks), dtype=dtype)
         zs = jax.random.normal(kz, (reps * b, t, nblocks), dtype=dtype)
@@ -215,7 +218,8 @@ def mt_abc_blocks_I(md: MarkerBlocks, alpha, beta, delta, ycorr, rinv, vare,
             step, (alpha_j, beta_j, delta_j, rhs0), (idx, us, zs), unroll=2
         )
         d_alpha = _mt_from_j(alpha_start - alpha_j)            # (t, p_pad)
-        ycorr = ycorr + jnp.einsum("np,tp->tn", md.X, d_alpha)
+        ycorr = ycorr + jnp.einsum("np,tp->tn", md.X, d_alpha,
+                                   precision=full_precision(dtype))
         return (alpha_j, beta_j, delta_j, ycorr)
 
     alpha_j, beta_j, delta_j, ycorr = _sync_rounds(
@@ -345,7 +349,9 @@ def mt_abc_blocks_II(md: MarkerBlocks, alpha, beta, delta, ycorr, rinv, vare,
     def round_fn(stt, kr, reps):
         alpha_j, beta_j, delta_j, ycorr = stt
         w_r = ycorr if rinv is None else ycorr * rinv[None, :]
-        rhs0 = _mt_to_j(jnp.einsum("np,tn->tp", md.X, w_r), nblocks, b)
+        rhs0 = _mt_to_j(jnp.einsum("np,tn->tp", md.X, w_r,
+                                   precision=full_precision(dtype)),
+                        nblocks, b)
         kg, kz = jax.random.split(kr)
         gums = jax.random.gumbel(kg, (reps * b, 2**t, nblocks), dtype=dtype)
         zs = jax.random.normal(kz, (reps * b, t, nblocks), dtype=dtype)
@@ -355,7 +361,8 @@ def mt_abc_blocks_II(md: MarkerBlocks, alpha, beta, delta, ycorr, rinv, vare,
             step, (alpha_j, beta_j, delta_j, rhs0), (idx, gums, zs)
         )
         d_alpha = _mt_from_j(alpha_start - alpha_j)
-        ycorr = ycorr + jnp.einsum("np,tp->tn", md.X, d_alpha)
+        ycorr = ycorr + jnp.einsum("np,tp->tn", md.X, d_alpha,
+                                   precision=full_precision(dtype))
         return (alpha_j, beta_j, delta_j, ycorr)
 
     alpha_j, beta_j, delta_j, ycorr = _sync_rounds(
@@ -460,12 +467,15 @@ def mt_c0l_blocks(md: MarkerBlocks, alpha, ycorr, rinv, vare, ginv,
     def round_fn(stt, kr, reps):
         alpha_j, ycorr = stt
         w_r = ycorr if rinv is None else ycorr * rinv[None, :]
-        rhs0 = _mt_to_j(jnp.einsum("np,tn->tp", md.X, w_r), nblocks, b)
+        rhs0 = _mt_to_j(jnp.einsum("np,tn->tp", md.X, w_r,
+                                   precision=full_precision(dtype)),
+                        nblocks, b)
         zs = jax.random.normal(kr, (reps * b, t, nblocks), dtype=dtype)
         idx = jnp.tile(jnp.arange(b), reps)
         alpha_start = alpha_j
         (alpha_j, _), _ = jax.lax.scan(step, (alpha_j, rhs0), (idx, zs), unroll=2)
-        ycorr = ycorr + jnp.einsum("np,tp->tn", md.X, _mt_from_j(alpha_start - alpha_j))
+        ycorr = ycorr + jnp.einsum("np,tp->tn", md.X, _mt_from_j(alpha_start - alpha_j),
+                                   precision=full_precision(dtype))
         return (alpha_j, ycorr)
 
     alpha_j, ycorr = _sync_rounds(

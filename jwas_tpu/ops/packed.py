@@ -1,9 +1,9 @@
 """Device-side 2-bit packed genotype operations.
 
-TPU-native replacement for the reference's decode-one-marker CPU loop
+Device-side replacement for the reference's decode-one-marker CPU loop
 (reference: src/1.JWAS/src/markers/streaming_genotypes.jl:978-1027): the
-packed (p, ceil(n/4)) uint8 matrix lives in HBM at 1/16 the dense f32
-footprint; marker tiles are decoded to centered float32 on the fly and fused
+packed (p, ceil(n/4)) uint8 matrix lives in device memory at 1/16 the dense
+f32 footprint; marker tiles are decoded to centered float32 on the fly and fused
 into the surrounding GEMVs by XLA, so the blocked Gibbs sweep never holds a
 dense X.
 
@@ -19,6 +19,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from jwas_tpu.ops import markers as mk
+
 
 class PackedMarkers(NamedTuple):
     """All-array pytree; static sizes come from shapes (n_obs =
@@ -30,51 +32,6 @@ class PackedMarkers(NamedTuple):
     xpx: jnp.ndarray        # (p_pad,) diag X'R^-1 X
     grams: jnp.ndarray      # (b, b, nblocks) fast-blocks Gram tiles
     valid: jnp.ndarray      # (p_pad,)
-
-
-def offload_packed_to_host(pm: "PackedMarkers") -> "PackedMarkers":
-    """Move the 2-bit store to pinned HOST memory (TPU memory offloading):
-    the sync GEMVs then stream marker chunks over PCIe each round while only
-    the Gram tiles + chain state stay HBM-resident — the runtime analogue of
-    the reference's out-of-core decode loop (streaming_genotypes.jl:978-1027)
-    for stores larger than one chip's HBM (N=500k x P=2M: 250 GB packed vs
-    ~1 GB of Gram tiles at b=128).
-
-    No-op (with a warning) on backends without a pinned_host memory space.
-    """
-    import warnings
-
-    import jax
-
-    try:
-        dev = pm.packed.devices().pop() if hasattr(pm.packed, "devices") else (
-            jax.devices()[0]
-        )
-        sharding = jax.sharding.SingleDeviceSharding(
-            dev, memory_kind="pinned_host"
-        )
-        packed_h = jax.device_put(pm.packed, sharding)
-        means_h = jax.device_put(pm.means, sharding)
-        return pm._replace(packed=packed_h, means=means_h)
-    except Exception as e:  # pragma: no cover - backend-dependent
-        warnings.warn(f"host offload of the packed store unavailable: {e}")
-        return pm
-
-
-def _to_device_memory(x):
-    """Inside-jit transfer of a host-resident chunk into device (HBM) memory
-    (the explicit move the XLA memory-offloading model requires); a no-op
-    annotation when the operand already lives on device or the backend has a
-    single memory space."""
-    import jax
-
-    try:
-        dev = jax.devices()[0]
-        return jax.device_put(
-            x, jax.sharding.SingleDeviceSharding(dev, memory_kind="device")
-        )
-    except Exception:  # pragma: no cover - backend-dependent
-        return x
 
 
 def decode_tile(packed_rows, means_rows, row_perm, dtype=jnp.float32,
@@ -104,14 +61,12 @@ def _pick_chunk(p_pad: int, b: int, target: int = 4096) -> int:
     return k * b
 
 
-@partial(jax.jit, static_argnames=("chunk", "n_obs", "host_store"))
-def packed_matvec(pm: PackedMarkers, v, chunk: int = 0, n_obs: int = 0,
-                  host_store: bool = False):
+@partial(jax.jit, static_argnames=("chunk", "n_obs"))
+def packed_matvec(pm: PackedMarkers, v, chunk: int = 0, n_obs: int = 0):
     """X @ v without densifying X: scan over marker chunks of the packed
-    store, decoding each tile into VMEM-sized registers (streaming_mul_alpha!,
-    :1009-1027, but tiled and on-device). n_obs is required (static) when
-    pm.row_perm is None (identity fast path). host_store=True streams each
-    packed chunk from pinned host memory (out-of-core mode)."""
+    store, decoding each tile on the fly (streaming_mul_alpha!, :1009-1027,
+    but tiled and on-device). n_obs is required (static) when
+    pm.row_perm is None (identity fast path)."""
     p_pad = pm.packed.shape[0]
     if chunk <= 0:
         chunk = _pick_chunk(p_pad, pm.grams.shape[0])
@@ -123,20 +78,17 @@ def packed_matvec(pm: PackedMarkers, v, chunk: int = 0, n_obs: int = 0,
         rows = jax.lax.dynamic_slice(pm.packed, (k * chunk, 0),
                                      (chunk, pm.packed.shape[1]))
         mns = jax.lax.dynamic_slice(pm.means, (k * chunk,), (chunk,))
-        if host_store:
-            rows = _to_device_memory(rows)
-            mns = _to_device_memory(mns)
         vs = jax.lax.dynamic_slice(v, (k * chunk,), (chunk,))
         X = decode_tile(rows, mns, pm.row_perm, dtype, n_obs=n)
-        return acc + X @ vs, None
+        return acc + mk.fdot(X, vs), None
 
     acc0 = jnp.zeros((n,), dtype)
     acc, _ = jax.lax.scan(body, acc0, jnp.arange(nchunks))
     return acc
 
 
-@partial(jax.jit, static_argnames=("chunk", "host_store"))
-def packed_rhs(pm: PackedMarkers, w, chunk: int = 0, host_store: bool = False):
+@partial(jax.jit, static_argnames=("chunk",))
+def packed_rhs(pm: PackedMarkers, w, chunk: int = 0):
     """X' w over the packed store, tiled (the rhs0 of the blocked sweep)."""
     p_pad = pm.packed.shape[0]
     if chunk <= 0:
@@ -149,21 +101,17 @@ def packed_rhs(pm: PackedMarkers, w, chunk: int = 0, host_store: bool = False):
         rows = jax.lax.dynamic_slice(pm.packed, (k * chunk, 0),
                                      (chunk, pm.packed.shape[1]))
         mns = jax.lax.dynamic_slice(pm.means, (k * chunk,), (chunk,))
-        if host_store:
-            rows = _to_device_memory(rows)
-            mns = _to_device_memory(mns)
         X = decode_tile(rows, mns, pm.row_perm, dtype, n_obs=n)
-        return None, X.T @ w
+        return None, mk.fdot(X.T, w)
 
     _, parts = jax.lax.scan(body, None, jnp.arange(nchunks))
     return parts.reshape(-1)
 
 
-@partial(jax.jit, static_argnames=("nreps", "sync_every", "chunk", "host_store"))
+@partial(jax.jit, static_argnames=("nreps", "sync_every", "chunk"))
 def sweep_blocks_abc_packed(pm: PackedMarkers, alpha, beta, delta, ycorr,
                             rinv, vare, var_eff, pi, key, nreps: int = 1,
-                            sync_every=None, chunk: int = 0,
-                            host_store: bool = False):
+                            sync_every=None, chunk: int = 0):
     """Fast-blocks BayesA/B/C sweep over the packed store.
 
     Identical math to markers.sweep_blocks_abc (BayesABC block path,
@@ -172,8 +120,6 @@ def sweep_blocks_abc_packed(pm: PackedMarkers, alpha, beta, delta, ycorr,
     dense X. Constraint parity with the reference streaming backend: this is
     the single-trait spike-slab path (input_data_validation.jl:81-111).
     """
-    from jwas_tpu.ops import markers as mk
-
     b = pm.grams.shape[0]
     nblocks = pm.grams.shape[2]
     dtype = ycorr.dtype
@@ -186,40 +132,21 @@ def sweep_blocks_abc_packed(pm: PackedMarkers, alpha, beta, delta, ycorr,
     log_pi_comp = mk._to_jmajor(jnp.log1p(-pi_c + 1e-12), nblocks, b)
     xpx_b = mk._to_jmajor(pm.xpx, nblocks, b)
 
-    md = mk.MarkerBlocks(pm.packed, pm.xpx, pm.grams, pm.valid)
-
-    def step(carry, inp):
-        alpha_b, beta_b, delta_b, rhs_b = carry
-        j, u, z = inp
-        a_j = alpha_b[j]
-        a_new, b_new, d_new = mk._abc_update(
-            rhs_b[j], a_j, xpx_b[j], inv_vare, var_eff_b[j],
-            log_pi[j], log_pi_comp[j], u, z,
-        )
-        rhs_b = rhs_b + (a_j - a_new)[None, :] * pm.grams[j]
-        return (
-            alpha_b.at[j].set(a_new),
-            beta_b.at[j].set(b_new),
-            delta_b.at[j].set(d_new),
-            rhs_b,
-        )
-
     def round_fn(stt, kr, reps):
         alpha_b, beta_b, delta_b, ycorr = stt
         w = ycorr if rinv is None else rinv * ycorr
-        rhs0 = mk._to_jmajor(
-            packed_rhs(pm, w, chunk=chunk, host_store=host_store), nblocks, b
-        )
+        rhs0 = mk._to_jmajor(packed_rhs(pm, w, chunk=chunk), nblocks, b)
         ku, kz = jax.random.split(kr)
         us = jax.random.uniform(ku, (reps * b, nblocks), dtype=dtype)
         zs = jax.random.normal(kz, (reps * b, nblocks), dtype=dtype)
         alpha_start = alpha_b
-        alpha_b, beta_b, delta_b, _ = mk._blocked_round(
-            md, step, (alpha_b, beta_b, delta_b, rhs0), (us, zs), reps, b
+        alpha_b, beta_b, delta_b, _ = mk.abc_inner_rounds(
+            pm.grams, xpx_b, var_eff_b, log_pi, log_pi_comp, alpha_b, beta_b,
+            delta_b, rhs0, us, zs, inv_vare,
         )
         ycorr = ycorr + packed_matvec(
             pm, mk._from_jmajor(alpha_start - alpha_b), chunk=chunk,
-            n_obs=ycorr.shape[0], host_store=host_store,
+            n_obs=ycorr.shape[0],
         )
         return (alpha_b, beta_b, delta_b, ycorr)
 
@@ -236,14 +163,10 @@ def sweep_blocks_abc_packed(pm: PackedMarkers, alpha, beta, delta, ycorr,
     )
 
 
-@partial(jax.jit, static_argnames=("nreps", "sync_every", "chunk", "host_store",
-                                   "use_pallas", "interpret"))
+@partial(jax.jit, static_argnames=("nreps", "sync_every", "chunk"))
 def sweep_blocks_bayesr_packed(pm: PackedMarkers, alpha, delta, ycorr,
                                rinv, vare, sigma_sq, pi, key, nreps: int = 1,
-                               sync_every=None, chunk: int = 0,
-                               host_store: bool = False,
-                               use_pallas: bool = False,
-                               interpret: bool = False):
+                               sync_every=None, chunk: int = 0):
     """Fast-blocks BayesR 4-class sweep over the packed store.
 
     Identical math to markers.sweep_blocks_bayesr (BayesR.jl:99-193) with the
@@ -252,8 +175,6 @@ def sweep_blocks_bayesr_packed(pm: PackedMarkers, alpha, delta, ycorr,
     BayesC-only, input_data_validation.jl:81-111). pi: (p_pad, 4) class
     priors (padded rows [1,0,0,0]); delta: (p_pad,) int32 class labels.
     """
-    from jwas_tpu.ops import markers as mk
-
     b = pm.grams.shape[0]
     nblocks = pm.grams.shape[2]
     dtype = ycorr.dtype
@@ -264,40 +185,19 @@ def sweep_blocks_bayesr_packed(pm: PackedMarkers, alpha, delta, ycorr,
     )  # (b, nblocks, 4)
     xpx_b = mk._to_jmajor(pm.xpx, nblocks, b)
 
-    def step(carry, inp):
-        alpha_b, delta_b, rhs_b = carry
-        j, g, z = inp
-        a_j = alpha_b[j]
-        a_new, k_new = mk._bayesr_update(
-            rhs_b[j], a_j, xpx_b[j], inv_vare, sigma_sq, log_pi[j], g, z
-        )
-        rhs_b = rhs_b + (a_j - a_new)[None, :] * pm.grams[j]
-        return (alpha_b.at[j].set(a_new), delta_b.at[j].set(k_new), rhs_b)
-
     def round_fn(stt, kr, reps):
         alpha_b, delta_b, ycorr = stt
         w = ycorr if rinv is None else rinv * ycorr
-        rhs0 = mk._to_jmajor(
-            packed_rhs(pm, w, chunk=chunk, host_store=host_store), nblocks, b
-        )
+        rhs0 = mk._to_jmajor(packed_rhs(pm, w, chunk=chunk), nblocks, b)
         kg, kz = jax.random.split(kr)
         alpha_start = alpha_b
-        if use_pallas:
-            from jwas_tpu.ops.pallas_sweep import bayesr_inner_rounds_pallas
-
-            alpha_b, delta_b, _ = bayesr_inner_rounds_pallas(
-                pm.grams, xpx_b, log_pi, alpha_b, delta_b, rhs0,
-                inv_vare, sigma_sq, kg, kz, nreps=reps, interpret=interpret,
-            )
-        else:
-            gum = jax.random.gumbel(kg, (reps * b, nblocks, 4), dtype=dtype)
-            zs = jax.random.normal(kz, (reps * b, nblocks), dtype=dtype)
-            alpha_b, delta_b, _ = mk._blocked_round(
-                None, step, (alpha_b, delta_b, rhs0), (gum, zs), reps, b
-            )
+        alpha_b, delta_b, _ = mk.bayesr_inner_rounds(
+            pm.grams, xpx_b, log_pi, alpha_b, delta_b, rhs0, inv_vare,
+            sigma_sq, kg, kz, reps,
+        )
         ycorr = ycorr + packed_matvec(
             pm, mk._from_jmajor(alpha_start - alpha_b), chunk=chunk,
-            n_obs=ycorr.shape[0], host_store=host_store,
+            n_obs=ycorr.shape[0],
         )
         return (alpha_b, delta_b, ycorr)
 
@@ -342,8 +242,8 @@ def packed_markers_from_arrays(packed, means, valid, row_perm, n_obs: int,
         X = decode_tile(rows, mns, rp, dtype, n_obs=n_obs)   # (n, nblk*b)
         Xb = X.reshape(n_obs, nblk, b)
         Xw = Xb if rv is None else Xb * rv[:, None, None]
-        g = jnp.einsum("nkb,nkc->bck", Xw, Xb)               # (b, b, nblk)
-        xpx = jnp.einsum("nkb,nkb->kb", Xw, Xb).reshape(-1)  # (nblk*b,)
+        g = mk.gram_tiles(Xb, Xw)                            # (b, b, nblk)
+        xpx = jnp.sum(Xw * Xb, axis=0).reshape(-1)
         return g, xpx
 
     grams_parts, xpx_parts = [], []

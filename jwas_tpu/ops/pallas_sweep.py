@@ -1,21 +1,30 @@
-"""Pallas TPU kernel for the fast-blocks spike-slab inner rounds.
+"""Pallas (Triton route) kernels for the fast-blocks inner rounds on a GPU.
 
 The hot loop of the whole framework (reference: the per-marker Gibbs chain of
-BayesABC!, src/1.JWAS/src/markers/BayesianAlphabet/BayesABC.jl:111-188,
-restructured by fast_blocks into b-length scalar chains on cached Gram
-tiles). The XLA path (ops/markers.py:sweep_blocks_abc) expresses the chain as
-a lax.scan; this kernel pins the mutable block state (alpha/beta/delta/rhs
-tiles) in VMEM for the whole sweep and double-buffers the per-step Gram-row
-DMA from HBM, which is the bandwidth-optimal schedule: each inner step must
-read exactly one (b, lanes) Gram row, so speed-of-light is
-    steps/s = HBM_bandwidth / (4 bytes * b * nblocks).
+BayesABC!, src/1.JWAS/src/markers/BayesianAlphabet/BayesABC.jl:111-188, and
+BayesR.jl:45-97, restructured by fast_blocks into b-length scalar chains on
+cached Gram tiles). The XLA path (ops/markers.py `_blocked_round`) expresses
+the chain as a `lax.scan`; every scan step is at least one kernel launch on a
+GPU, and each sync round is `nreps * b` strictly dependent steps.
 
-Bit-compatibility: the kernel consumes the same pre-drawn uniforms/normals
-and applies the same update order as the XLA path, so outputs match
-sweep_blocks_abc exactly (tested in interpret mode on CPU).
+Here one program owns `L` marker blocks and runs all `nreps * b` steps of a
+sync round in one launch:
 
-Blocks are laid out j-major: state tiles are (b, nblocks); each grid cell
-owns a disjoint 128-lane group of blocks.
+- the state rows (alpha, beta, delta, rhs; `(L, bp)` with the block size
+  padded to a power of two `bp`) stay in registers for the whole round;
+- the per-marker update is evaluated elementwise over the row and marker j
+  is selected by a mask, so the only cross-thread work per step is one sum
+  (the change of alpha_j) that is broadcast into the rhs update;
+- the Gram tile is read block-major (`(nblocks, bp, bp)`), one contiguous
+  row per step; a block's 64 KB tile (b=128, f32) stays cache-resident
+  across the round's repetitions;
+- the random draws are made by `jax.random` outside the kernel from the same
+  keys as the XLA path, so outputs follow the XLA scan's update order and
+  draws exactly (tested in interpret mode on the CPU).
+
+Blocks are independent within a round, so programs run in parallel with no
+communication; padded blocks and padded rows are masked out by construction
+(zero Gram rows, never-selected positions).
 """
 
 from __future__ import annotations
@@ -25,629 +34,206 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-LANES = 128          # hardware lane width; the kernel tile may span several
+from jwas_tpu.ops import markers as mk
 
-# VMEM budget for keeping a lane-group's FULL (b, b, lanes) Gram tile
-# resident for the whole sweep (ONE bulk DMA per grid cell instead of one
-# (b, lanes) row DMA per inner step). Measured round 5
-# (benchmarks/results/kernel_efficiency_r05.md): the resident variant is
-# WITHIN NOISE of the double-buffered per-step-DMA kernel at every engine
-# shape — the row DMA is already hidden behind compute; the kernel is
-# bound by the nreps*b strictly-sequential scalar steps (~0.4-1.4 us per
-# step depending on lane width), not by HBM traffic. Kept because it is
-# never slower and frees DMA bandwidth for the concurrent host-offload
-# streams in out-of-core runs.
-RESIDENT_BUDGET = 9 * 1024 * 1024
+NUM_SMS_HINT = 132       # programs in flight before blocks are batched per program
 
 
-def _pick_resident_lanes(nblocks: int, b: int, dtype_bytes: int = 4) -> int:
-    """Widest lane group whose full Gram tile fits the resident budget;
-    0 when none does (fall back to the per-step-DMA kernel)."""
-    for cand in (1024, 512, 256, 128):
-        if nblocks % cand == 0 and b * b * cand * dtype_bytes <= RESIDENT_BUDGET:
-            return cand
-    return 0
+def _pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
 
 
-def _pick_lanes(nblocks: int, b: int, dtype_bytes: int = 4) -> int:
-    """Lane-group width per grid cell: wider tiles amortize the per-step
-    DMA/semaphore overhead (the kernel is overhead-bound at (b, 128) tiles —
-    each inner step moves only b*128*4 bytes). Bounded by VMEM: the kernel
-    holds ~9 (b, lanes) f32 buffers + a (2, 2, b, lanes) RNG panel."""
-    budget = 12 * 1024 * 1024  # leave headroom under ~16 MB VMEM
-    lanes = LANES
-    for cand in (1024, 512, 256):
-        if nblocks % cand == 0 and (13 * b * cand * dtype_bytes) <= budget:
-            lanes = cand
-            break
-    return lanes
+def _blocks_per_program(nblocks: int) -> int:
+    """Marker blocks per program: one while the grid fits the card's SMs
+    about twice over (the chain is latency-bound, so parallel programs are
+    free); more once there are many blocks to amortise each step over."""
+    L = 1
+    while L < 8 and nblocks > 2 * NUM_SMS_HINT * L:
+        L *= 2
+    return L
 
 
-def _abc_kernel(nreps: int, b: int, lanes: int,
-                xpx_ref, var_eff_ref, log_pi_ref, log_pi_comp_ref,
-                inv_vare_ref,
-                us_hbm, zs_hbm, grams_hbm,
-                alpha_in, beta_in, delta_in, rhs_in,
-                alpha_ref, beta_ref, delta_ref, rhs_ref,
-                gram_buf, rng_buf, gram_sems, rng_sems):
-    """One grid cell: all inner rounds for a `lanes`-wide group of blocks.
-
-    alpha/beta/delta/rhs: inputs aliased onto the outputs (same VMEM buffer);
-    all reads/writes go through the out refs. us/zs/grams stay in HBM (ANY);
-    per-step Gram rows and per-round RNG panels are DMA'd into VMEM double
-    buffers.
-    """
-    del alpha_in, beta_in, delta_in, rhs_in
-    k0 = pl.program_id(0) * lanes
-    inv_vare = inv_vare_ref[0]
-    n_steps = nreps * b
-
-    def gram_dma(slot, step):
-        j = step % b
-        return pltpu.make_async_copy(
-            grams_hbm.at[j, :, pl.ds(k0, lanes)], gram_buf.at[slot],
-            gram_sems.at[slot],
-        )
-
-    def rng_dma(slot, rnd):
-        return pltpu.make_async_copy(
-            us_hbm.at[pl.ds(rnd * b, b), pl.ds(k0, lanes)],
-            rng_buf.at[slot, 0], rng_sems.at[slot, 0],
-        ), pltpu.make_async_copy(
-            zs_hbm.at[pl.ds(rnd * b, b), pl.ds(k0, lanes)],
-            rng_buf.at[slot, 1], rng_sems.at[slot, 1],
-        )
-
-    gram_dma(0, 0).start()
-    for d in rng_dma(0, 0):
-        d.start()
-
-    def body(step, _):
-        j = step % b
-        slot = step % 2
-        rnd = step // b
-        rslot = rnd % 2
-
-        @pl.when(step + 1 < n_steps)
-        def _():
-            gram_dma((step + 1) % 2, step + 1).start()
-
-        @pl.when(jnp.logical_and(j == 0, rnd + 1 < nreps))
-        def _():
-            for d in rng_dma((rnd + 1) % 2, rnd + 1):
-                d.start()
-
-        gram_dma(slot, step).wait()
-
-        @pl.when(j == 0)
-        def _():
-            for d in rng_dma(rslot, rnd):
-                d.wait()
-
-        a_j = alpha_ref[j, :]
-        xpx_j = xpx_ref[j, :]
-        var_eff_j = var_eff_ref[j, :]
-        rhs_j = rhs_ref[j, :]
-        u = rng_buf[rslot, 0, j, :]
-        z = rng_buf[rslot, 1, j, :]
-
-        # _abc_update (ops/markers.py:106-125; BayesABC.jl:24-58)
-        inv_var_eff = 1.0 / var_eff_j
-        log_var_eff = jnp.log(var_eff_j)
-        rhs = (rhs_j + xpx_j * a_j) * inv_vare
-        lhs = xpx_j * inv_vare + inv_var_eff
-        inv_lhs = 1.0 / lhs
-        g_hat = rhs * inv_lhs
-        log_delta1 = (
-            -0.5 * (jnp.log(lhs) + log_var_eff - g_hat * rhs)
-            + log_pi_comp_ref[j, :]
-        )
-        prob_delta1 = 1.0 / (1.0 + jnp.exp(log_pi_ref[j, :] - log_delta1))
-        include = u < prob_delta1
-        beta_in = g_hat + z * jnp.sqrt(inv_lhs)
-        beta_out = z * jnp.sqrt(var_eff_j)
-        a_new = jnp.where(include, beta_in, 0.0)
-
-        alpha_ref[j, :] = a_new
-        beta_ref[j, :] = jnp.where(include, beta_in, beta_out)
-        delta_ref[j, :] = include.astype(jnp.int32)
-        rhs_ref[:, :] = rhs_ref[:, :] + (a_j - a_new)[None, :] * gram_buf[slot]
-        return 0
-
-    jax.lax.fori_loop(0, n_steps, body, 0)
-
-
-def _abc_kernel_resident(nreps: int, b: int, lanes: int,
-                         xpx_ref, var_eff_ref, log_pi_ref, log_pi_comp_ref,
-                         inv_vare_ref,
-                         us_hbm, zs_hbm, grams_hbm,
-                         alpha_in, beta_in, delta_in, rhs_in,
-                         alpha_ref, beta_ref, delta_ref, rhs_ref,
-                         gram_buf, rng_buf, gram_sem, rng_sems):
-    """Resident-Gram grid cell: the whole (b, b, lanes) Gram tile is copied
-    into VMEM once, then all nreps*b inner steps run without any per-step
-    DMA (the RNG panels stay double-buffered per round)."""
-    del alpha_in, beta_in, delta_in, rhs_in
-    k0 = pl.program_id(0) * lanes
-    inv_vare = inv_vare_ref[0]
-    n_steps = nreps * b
-
-    gcopy = pltpu.make_async_copy(
-        grams_hbm.at[:, :, pl.ds(k0, lanes)], gram_buf, gram_sem
+def _launch(kernel, grid, out_shape, L, bp, interpret, name):
+    """One warp while a program's rows fit in 256 lanes, else four."""
+    return pl.pallas_call(
+        kernel,
+        grid=grid,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=1 if L * bp <= 256 else 4, num_stages=2),
+        interpret=interpret,
+        name=name,
     )
-    gcopy.start()
 
-    def rng_dma(slot, rnd):
-        return pltpu.make_async_copy(
-            us_hbm.at[pl.ds(rnd * b, b), pl.ds(k0, lanes)],
-            rng_buf.at[slot, 0], rng_sems.at[slot, 0],
-        ), pltpu.make_async_copy(
-            zs_hbm.at[pl.ds(rnd * b, b), pl.ds(k0, lanes)],
-            rng_buf.at[slot, 1], rng_sems.at[slot, 1],
-        )
 
-    for d in rng_dma(0, 0):
-        d.start()
-    gcopy.wait()
+def _to_block_major(x, nbp, bp, fill):
+    """(b, nblocks) j-major tile -> padded (nbp, bp) block-major rows."""
+    b, nblocks = x.shape
+    return jnp.pad(x.T, ((0, nbp - nblocks), (0, bp - b)),
+                   constant_values=fill)
 
-    def body(step, _):
-        j = step % b
-        rnd = step // b
-        rslot = rnd % 2
 
-        @pl.when(jnp.logical_and(j == 0, rnd + 1 < nreps))
-        def _():
-            for d in rng_dma((rnd + 1) % 2, rnd + 1):
-                d.start()
+def _grams_block_major(grams, nbp, bp):
+    """(b, b, nblocks) j-major Grams -> zero-padded (nbp, bp, bp) with
+    out[i, j, :] = row j of block i's Gram."""
+    b, _, nblocks = grams.shape
+    g = jnp.transpose(grams, (2, 0, 1))
+    return jnp.pad(g, ((0, nbp - nblocks), (0, bp - b), (0, bp - b)))
 
-        @pl.when(j == 0)
-        def _():
-            for d in rng_dma(rslot, rnd):
-                d.wait()
 
-        a_j = alpha_ref[j, :]
-        xpx_j = xpx_ref[j, :]
-        var_eff_j = var_eff_ref[j, :]
-        rhs_j = rhs_ref[j, :]
-        u = rng_buf[rslot, 0, j, :]
-        z = rng_buf[rslot, 1, j, :]
+def _pad_draws(x, nbp):
+    """(steps, nblocks) draws -> (steps, nbp)."""
+    return jnp.pad(x, ((0, 0), (0, nbp - x.shape[1])))
 
-        # _abc_update (ops/markers.py:118-137; BayesABC.jl:24-58)
-        inv_var_eff = 1.0 / var_eff_j
-        log_var_eff = jnp.log(var_eff_j)
-        rhs = (rhs_j + xpx_j * a_j) * inv_vare
-        lhs = xpx_j * inv_vare + inv_var_eff
-        inv_lhs = 1.0 / lhs
-        g_hat = rhs * inv_lhs
-        log_delta1 = (
-            -0.5 * (jnp.log(lhs) + log_var_eff - g_hat * rhs)
-            + log_pi_comp_ref[j, :]
-        )
-        prob_delta1 = 1.0 / (1.0 + jnp.exp(log_pi_ref[j, :] - log_delta1))
-        include = u < prob_delta1
-        beta_in = g_hat + z * jnp.sqrt(inv_lhs)
-        beta_out = z * jnp.sqrt(var_eff_j)
-        a_new = jnp.where(include, beta_in, 0.0)
 
-        alpha_ref[j, :] = a_new
-        beta_ref[j, :] = jnp.where(include, beta_in, beta_out)
-        delta_ref[j, :] = include.astype(jnp.int32)
-        rhs_ref[:, :] = rhs_ref[:, :] + (a_j - a_new)[None, :] * gram_buf[j]
-        return 0
+def _abc_kernel(n_steps, b, L, bp,
+                scal_ref, xpx_ref, ve_ref, lp_ref, lpc_ref, us_ref, zs_ref,
+                g_ref, a_ref, be_ref, d_ref, rhs_ref,
+                a_out, be_out, d_out, rhs_out):
+    blk = pl.ds(pl.program_id(0) * L, L)
+    inv_vare = scal_ref[0]
+    xpx, ve = xpx_ref[blk, :], ve_ref[blk, :]
+    lp, lpc = lp_ref[blk, :], lpc_ref[blk, :]
+    cols = jax.lax.broadcasted_iota(jnp.int32, (L, bp), 1)
 
-    jax.lax.fori_loop(0, n_steps, body, 0)
+    def body(step, carry):
+        alpha, beta, delta, rhs = carry
+        j = jax.lax.rem(step, b)
+        u = us_ref[step, blk][:, None]
+        z = zs_ref[step, blk][:, None]
+        a_new, b_new, d_new = mk._abc_update(rhs, alpha, xpx, inv_vare, ve,
+                                             lp, lpc, u, z)
+        sel = cols == j
+        d_a = jnp.sum(jnp.where(sel, alpha - a_new, 0.0), axis=1)
+        rhs = rhs + d_a[:, None] * g_ref[blk, j, :]
+        return (jnp.where(sel, a_new, alpha), jnp.where(sel, b_new, beta),
+                jnp.where(sel, d_new, delta), rhs)
+
+    carry = (a_ref[blk, :], be_ref[blk, :], d_ref[blk, :], rhs_ref[blk, :])
+    alpha, beta, delta, rhs = jax.lax.fori_loop(0, n_steps, body, carry)
+    a_out[blk, :] = alpha
+    be_out[blk, :] = beta
+    d_out[blk, :] = delta
+    rhs_out[blk, :] = rhs
 
 
 @partial(jax.jit, static_argnames=("nreps", "interpret"))
 def abc_inner_rounds_pallas(grams, xpx_b, var_eff_b, log_pi, log_pi_comp,
                             alpha_b, beta_b, delta_b, rhs0, us, zs, inv_vare,
                             nreps: int, interpret: bool = False):
-    """Run nreps rounds of the within-block update chain on every block.
+    """Run nreps rounds of the spike-slab within-block chain on every block.
 
-    grams: (b, b, nblocks); state/tiles: (b, nblocks); us/zs: (nreps*b,
-    nblocks). nblocks must be a multiple of 128 (pad blocks upstream).
-    Returns (alpha_b, beta_b, delta_b, rhs_b); same values as the XLA scan.
-    """
+    grams: (b, b, nblocks) j-major; state/tiles: (b, nblocks); us/zs:
+    (nreps*b, nblocks). Any b and nblocks (padding is internal). Returns
+    (alpha_b, beta_b, delta_b, rhs_b) in the j-major layout: the values of
+    the XLA scan on the same draws."""
     b, _, nblocks = grams.shape
-    if nblocks % LANES:
-        raise ValueError(f"nblocks ({nblocks}) must be a multiple of {LANES}")
-    res_lanes = _pick_resident_lanes(nblocks, b)
-    lanes = res_lanes or _pick_lanes(nblocks, b)
-    grid = (nblocks // lanes,)
     dtype = rhs0.dtype
-
-    tile = lambda i: (0, i)                   # noqa: E731
-    if res_lanes:
-        kernel = partial(_abc_kernel_resident, nreps, b, lanes)
-        scratch = [
-            pltpu.VMEM((b, b, lanes), dtype),        # resident Gram tile
-            pltpu.VMEM((2, 2, b, lanes), dtype),     # (slot, u/z, b, lanes)
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ]
-    else:
-        kernel = partial(_abc_kernel, nreps, b, lanes)
-        scratch = [
-            pltpu.VMEM((2, b, lanes), dtype),        # gram double buffer
-            pltpu.VMEM((2, 2, b, lanes), dtype),     # (slot, u/z, b, lanes)
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ]
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # xpx
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # var_eff
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # log_pi
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # log_pi_comp
-            pl.BlockSpec(memory_space=pltpu.SMEM),                      # inv_vare
-            pl.BlockSpec(memory_space=pl.ANY),                       # us
-            pl.BlockSpec(memory_space=pl.ANY),                       # zs
-            pl.BlockSpec(memory_space=pl.ANY),                       # grams
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # alpha
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # beta
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # delta
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # rhs
-        ],
-        out_specs=[
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, nblocks), dtype),
-            jax.ShapeDtypeStruct((b, nblocks), dtype),
-            jax.ShapeDtypeStruct((b, nblocks), jnp.int32),
-            jax.ShapeDtypeStruct((b, nblocks), dtype),
-        ],
-        scratch_shapes=scratch,
-        input_output_aliases={8: 0, 9: 1, 10: 2, 11: 3},
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nreps * b * b * nblocks,
-            bytes_accessed=4 * nreps * b * b * nblocks,
-            transcendentals=3 * nreps * b * nblocks,
-        ),
-        interpret=interpret,
+    bp = _pow2(b)
+    L = _blocks_per_program(nblocks)
+    nbp = -(-nblocks // L) * L
+    rows = lambda x, fill=0.0: _to_block_major(x, nbp, bp, fill)  # noqa: E731
+    kernel = partial(_abc_kernel, nreps * b, b, L, bp)
+    state_shape = jax.ShapeDtypeStruct((nbp, bp), dtype)
+    out = _launch(
+        kernel, (nbp // L,),
+        [state_shape, state_shape,
+         jax.ShapeDtypeStruct((nbp, bp), jnp.int32), state_shape],
+        L, bp, interpret,
+        "gibbs_abc_inner_rounds",
     )(
-        xpx_b, var_eff_b, log_pi, log_pi_comp,
-        jnp.asarray([inv_vare], dtype), us, zs, grams,
-        alpha_b, beta_b, delta_b.astype(jnp.int32), rhs0,
+        jnp.reshape(jnp.asarray(inv_vare, dtype), (1,)),
+        rows(xpx_b, 1.0), rows(jnp.broadcast_to(var_eff_b, xpx_b.shape), 1.0),
+        rows(log_pi), rows(log_pi_comp), _pad_draws(us, nbp),
+        _pad_draws(zs, nbp), _grams_block_major(grams, nbp, bp),
+        rows(alpha_b), rows(beta_b), rows(delta_b.astype(jnp.int32), 0),
+        rows(rhs0),
     )
-    alpha_o, beta_o, delta_o, rhs_o = out
-    return alpha_o, beta_o, delta_o, rhs_o
+    return tuple(o[:nblocks, :b].T for o in out)
 
 
-BAYESR_GAMMA = (0.0, 0.01, 0.1, 1.0)    # class variance scales (markers.py:52)
-
-
-def _bayesr_kernel_resident(nreps: int, b: int, lanes: int,
-                            xpx_ref, lp0_ref, lp1_ref, lp2_ref, lp3_ref,
-                            scal_ref,
-                            gum_hbm, zs_hbm, grams_hbm,
-                            alpha_in, delta_in, rhs_in,
-                            alpha_ref, delta_ref, rhs_ref,
-                            gram_buf, gum_buf, z_buf,
-                            gram_sem, gum_sems, z_sems):
-    """Resident-Gram BayesR grid cell: the 4-class mixture update chain
-    (markers._bayesr_update; BayesR.jl:45-97) with the whole Gram tile in
-    VMEM; per-round Gumbel panels + normals double-buffered from HBM."""
-    del alpha_in, delta_in, rhs_in
-    k0 = pl.program_id(0) * lanes
+def _bayesr_kernel(n_steps, b, L, bp,
+                   scal_ref, xpx_ref, lp_ref, gum_ref, zs_ref, g_ref,
+                   a_ref, d_ref, rhs_ref, a_out, d_out, rhs_out):
+    blk = pl.ds(pl.program_id(0) * L, L)
     inv_vare = scal_ref[0]
     sigma_sq = scal_ref[1]
-    n_steps = nreps * b
+    xpx = xpx_ref[blk, :]
+    lps = [lp_ref[k, blk, :] for k in range(4)]
+    cols = jax.lax.broadcasted_iota(jnp.int32, (L, bp), 1)
 
-    gcopy = pltpu.make_async_copy(
-        grams_hbm.at[:, :, pl.ds(k0, lanes)], gram_buf, gram_sem
-    )
-    gcopy.start()
-
-    def rng_dma(slot, rnd):
-        return pltpu.make_async_copy(
-            gum_hbm.at[:, pl.ds(rnd * b, b), pl.ds(k0, lanes)],
-            gum_buf.at[slot], gum_sems.at[slot],
-        ), pltpu.make_async_copy(
-            zs_hbm.at[pl.ds(rnd * b, b), pl.ds(k0, lanes)],
-            z_buf.at[slot], z_sems.at[slot],
-        )
-
-    for d in rng_dma(0, 0):
-        d.start()
-    gcopy.wait()
-
-    lp_refs = (lp0_ref, lp1_ref, lp2_ref, lp3_ref)
-
-    def body(step, _):
-        j = step % b
-        rnd = step // b
-        rslot = rnd % 2
-
-        @pl.when(jnp.logical_and(j == 0, rnd + 1 < nreps))
-        def _():
-            for d in rng_dma((rnd + 1) % 2, rnd + 1):
-                d.start()
-
-        @pl.when(j == 0)
-        def _():
-            for d in rng_dma(rslot, rnd):
-                d.wait()
-
-        a_j = alpha_ref[j, :]
-        xpx_j = xpx_ref[j, :]
-        rhs = (rhs_ref[j, :] + xpx_j * a_j) * inv_vare
-        z = z_buf[rslot, j, :]
-
-        # class 0 (spike), then slab classes 1..3; first-max tie-breaking
-        # matches jnp.argmax in the XLA path
-        best = lp_refs[0][j, :] + gum_buf[rslot, 0, j, :]
-        kv = jnp.zeros_like(best, dtype=jnp.int32)
+    def body(step, carry):
+        alpha, delta, rhs = carry
+        j = jax.lax.rem(step, b)
+        z = zs_ref[step, blk][:, None]
+        # the math of markers.bayesr_class_logprobs + the Gumbel-max draw;
+        # first-max tie-breaking as jnp.argmax
+        r = (rhs + xpx * alpha) * inv_vare
+        best = lps[0] + gum_ref[0, step, blk][:, None]
+        kv = jnp.zeros((L, bp), jnp.int32)
         bh_b = jnp.zeros_like(best)
         il_b = jnp.zeros_like(best)
         for k in (1, 2, 3):
-            var_eff = BAYESR_GAMMA[k] * sigma_sq
-            lhs = xpx_j * inv_vare + 1.0 / var_eff
-            il = 1.0 / lhs
-            bh = il * rhs
-            ll = 0.5 * (jnp.log(il) - jnp.log(var_eff) + bh * rhs)
-            score = lp_refs[k][j, :] + ll + gum_buf[rslot, k, j, :]
+            var_eff = mk.BAYESR_GAMMA[k] * sigma_sq
+            il = 1.0 / (xpx * inv_vare + 1.0 / var_eff)
+            bh = il * r
+            ll = 0.5 * (jnp.log(il) - jnp.log(var_eff) + bh * r)
+            score = (lps[k] + ll) + gum_ref[k, step, blk][:, None]
             upd = score > best
             best = jnp.where(upd, score, best)
             kv = jnp.where(upd, k, kv)
             bh_b = jnp.where(upd, bh, bh_b)
             il_b = jnp.where(upd, il, il_b)
         a_new = jnp.where(kv == 0, 0.0, bh_b + z * jnp.sqrt(il_b))
+        sel = cols == j
+        d_a = jnp.sum(jnp.where(sel, alpha - a_new, 0.0), axis=1)
+        rhs = rhs + d_a[:, None] * g_ref[blk, j, :]
+        return (jnp.where(sel, a_new, alpha), jnp.where(sel, kv, delta), rhs)
 
-        alpha_ref[j, :] = a_new
-        delta_ref[j, :] = kv
-        rhs_ref[:, :] = rhs_ref[:, :] + (a_j - a_new)[None, :] * gram_buf[j]
-        return 0
-
-    jax.lax.fori_loop(0, n_steps, body, 0)
+    carry = (a_ref[blk, :], d_ref[blk, :], rhs_ref[blk, :])
+    alpha, delta, rhs = jax.lax.fori_loop(0, n_steps, body, carry)
+    a_out[blk, :] = alpha
+    d_out[blk, :] = delta
+    rhs_out[blk, :] = rhs
 
 
 @partial(jax.jit, static_argnames=("nreps", "interpret"))
 def bayesr_inner_rounds_pallas(grams, xpx_b, log_pi_b, alpha_b, delta_b, rhs0,
-                               inv_vare, sigma_sq, kg, kz,
-                               nreps: int, interpret: bool = False):
-    """Run nreps rounds of the BayesR within-block update chain on every
-    block. grams: (b, b, nblocks); xpx_b/alpha_b/rhs0: (b, nblocks);
-    log_pi_b: (b, nblocks, 4) log class priors; delta_b: (b, nblocks) int32
-    class labels. Draws (gumbel panels + normals) are generated here exactly
-    as the XLA path in ops/grouped.py draws them, so outputs match the scan
-    bit-for-bit in interpret mode. Requires the resident-Gram budget (raises
-    otherwise — callers gate on pallas_resident_ok)."""
+                               inv_vare, sigma_sq, kg, kz, nreps: int,
+                               interpret: bool = False):
+    """Run nreps rounds of the BayesR within-block chain on every block.
+
+    grams: (b, b, nblocks); xpx_b/alpha_b/rhs0: (b, nblocks); log_pi_b:
+    (b, nblocks, 4) log class priors; delta_b: (b, nblocks) int32 class
+    labels. The Gumbel panels and normals are drawn here exactly as the XLA
+    path draws them from (kg, kz), so outputs follow the scan's draws."""
     b, _, nblocks = grams.shape
-    if nblocks % LANES:
-        raise ValueError(f"nblocks ({nblocks}) must be a multiple of {LANES}")
-    lanes = _pick_resident_lanes(nblocks, b)
-    if not lanes:
-        raise ValueError(
-            f"BayesR Pallas kernel requires the resident-Gram budget "
-            f"(b={b} too large); use the XLA sweep"
-        )
-    grid = (nblocks // lanes,)
     dtype = rhs0.dtype
+    bp = _pow2(b)
+    L = _blocks_per_program(nblocks)
+    nbp = -(-nblocks // L) * L
     gum = jax.random.gumbel(kg, (nreps * b, nblocks, 4), dtype=dtype)
     zs = jax.random.normal(kz, (nreps * b, nblocks), dtype=dtype)
-    gum_t = jnp.moveaxis(gum, 2, 0)           # (4, nreps*b, nblocks)
-    lp = [log_pi_b[:, :, k] for k in range(4)]
-
-    tile = lambda i: (0, i)                   # noqa: E731
-    kernel = partial(_bayesr_kernel_resident, nreps, b, lanes)
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # xpx
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # lp0
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # lp1
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # lp2
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # lp3
-            pl.BlockSpec(memory_space=pltpu.SMEM),                      # scalars
-            pl.BlockSpec(memory_space=pl.ANY),                       # gum
-            pl.BlockSpec(memory_space=pl.ANY),                       # zs
-            pl.BlockSpec(memory_space=pl.ANY),                       # grams
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # alpha
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # delta
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),   # rhs
-        ],
-        out_specs=[
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, lanes), tile, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, nblocks), dtype),
-            jax.ShapeDtypeStruct((b, nblocks), jnp.int32),
-            jax.ShapeDtypeStruct((b, nblocks), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((b, b, lanes), dtype),        # resident Gram tile
-            pltpu.VMEM((2, 4, b, lanes), dtype),     # gumbel double buffer
-            pltpu.VMEM((2, b, lanes), dtype),        # normals double buffer
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        input_output_aliases={9: 0, 10: 1, 11: 2},
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nreps * b * b * nblocks,
-            bytes_accessed=4 * nreps * b * b * nblocks,
-            transcendentals=9 * nreps * b * nblocks,
-        ),
-        interpret=interpret,
+    gum_t = jnp.pad(jnp.moveaxis(gum, 2, 0),
+                    ((0, 0), (0, 0), (0, nbp - nblocks)))
+    lp = jnp.stack([_to_block_major(log_pi_b[:, :, k], nbp, bp, 0.0)
+                    for k in range(4)])
+    rows = lambda x, fill=0.0: _to_block_major(x, nbp, bp, fill)  # noqa: E731
+    kernel = partial(_bayesr_kernel, nreps * b, b, L, bp)
+    state_shape = jax.ShapeDtypeStruct((nbp, bp), dtype)
+    out = _launch(
+        kernel, (nbp // L,),
+        [state_shape, jax.ShapeDtypeStruct((nbp, bp), jnp.int32),
+         state_shape],
+        L, bp, interpret,
+        "gibbs_bayesr_inner_rounds",
     )(
-        xpx_b, lp[0], lp[1], lp[2], lp[3],
-        jnp.asarray([inv_vare, sigma_sq], dtype), gum_t, zs, grams,
-        alpha_b, delta_b.astype(jnp.int32), rhs0,
+        jnp.stack([jnp.asarray(inv_vare, dtype), jnp.asarray(sigma_sq, dtype)]),
+        rows(xpx_b, 1.0), lp, gum_t, _pad_draws(zs, nbp),
+        _grams_block_major(grams, nbp, bp),
+        rows(alpha_b), rows(delta_b.astype(jnp.int32), 0), rows(rhs0),
     )
-    alpha_o, delta_o, rhs_o = out
-    return alpha_o, delta_o, rhs_o
-
-
-def pallas_resident_ok(nblocks: int, b: int) -> bool:
-    """True when the resident-Gram kernels can run at this block shape."""
-    return nblocks % LANES == 0 and _pick_resident_lanes(nblocks, b) > 0
-
-
-def sweep_blocks_abc_pallas_packed(pm, alpha, beta, delta, ycorr, rinv, vare,
-                                   var_eff, pi, key, nreps: int = 1,
-                                   sync_every=None, interpret: bool = False,
-                                   chunk: int = 0, host_store: bool = False):
-    """Pallas inner rounds + 2-bit packed residual syncs: the north-star
-    single-chip configuration. The inner block chains run in the Pallas
-    kernel (speed-of-light on Gram-row traffic) and the two O(n*p) GEMVs
-    bounding each sync round stream decoded tiles from the packed store at
-    1/16 the dense-f32 bytes (streaming_genotypes.jl:978-1027 analogue).
-    Identical math + draws to sweep_blocks_abc / sweep_blocks_abc_packed."""
-    from jwas_tpu.ops import markers as mk
-    from jwas_tpu.ops.packed import packed_matvec, packed_rhs
-    from jwas_tpu.ops.pallas_packed_gemv import (
-        packed_matvec_fused,
-        packed_rhs_fused,
-    )
-
-    b, _, nblocks = pm.grams.shape
-    dtype = ycorr.dtype
-    # decode-fused Pallas GEMVs need store order == observation order and a
-    # device-resident store; otherwise fall back to the XLA tiled GEMVs
-    use_fused = pm.row_perm is None and not host_store
-    var_eff_b = mk._to_jmajor(
-        jnp.broadcast_to(jnp.asarray(var_eff, dtype), (nblocks * b,)), nblocks, b
-    )
-    pi_c = jnp.clip(pi.astype(dtype), 1e-10, 1.0)
-    log_pi = mk._to_jmajor(jnp.log(pi_c), nblocks, b)
-    log_pi_comp = mk._to_jmajor(jnp.log1p(-pi_c + 1e-12), nblocks, b)
-    xpx_b = mk._to_jmajor(pm.xpx, nblocks, b)
-
-    def round_fn(stt, kr, reps):
-        alpha_b, beta_b, delta_b, ycorr = stt
-        w = ycorr if rinv is None else rinv * ycorr
-        if use_fused:
-            rhs_flat = packed_rhs_fused(pm.packed, pm.means, w,
-                                        interpret=interpret).astype(dtype)
-        else:
-            rhs_flat = packed_rhs(pm, w, chunk=chunk, host_store=host_store)
-        rhs0 = mk._to_jmajor(rhs_flat, nblocks, b)
-        ku, kz = jax.random.split(kr)
-        us = jax.random.uniform(ku, (reps * b, nblocks), dtype=dtype)
-        zs = jax.random.normal(kz, (reps * b, nblocks), dtype=dtype)
-        alpha_start = alpha_b
-        alpha_b, beta_b, delta_b, _ = abc_inner_rounds_pallas(
-            pm.grams, xpx_b, var_eff_b, log_pi, log_pi_comp,
-            alpha_b, beta_b, delta_b, rhs0, us, zs, 1.0 / vare,
-            nreps=reps, interpret=interpret,
-        )
-        d_alpha = mk._from_jmajor(alpha_start - alpha_b)
-        if use_fused:
-            ycorr = ycorr + packed_matvec_fused(
-                pm.packed, pm.means, d_alpha, n_obs=ycorr.shape[0],
-                interpret=interpret,
-            ).astype(dtype)
-        else:
-            ycorr = ycorr + packed_matvec(
-                pm, d_alpha, chunk=chunk,
-                n_obs=ycorr.shape[0], host_store=host_store,
-            )
-        return (alpha_b, beta_b, delta_b, ycorr)
-
-    alpha_b, beta_b, delta_b, ycorr = mk._sync_rounds(
-        nreps, sync_every, key, round_fn,
-        (mk._to_jmajor(alpha, nblocks, b), mk._to_jmajor(beta, nblocks, b),
-         mk._to_jmajor(delta, nblocks, b), ycorr),
-    )
-    return (
-        mk._from_jmajor(alpha_b),
-        mk._from_jmajor(beta_b),
-        mk._from_jmajor(delta_b),
-        ycorr,
-    )
-
-
-def sweep_blocks_bayesr_pallas(md, alpha, delta, ycorr, rinv, vare,
-                               sigma_sq, pi, key, nreps: int = 1,
-                               sync_every=None, interpret: bool = False):
-    """Drop-in replacement for markers.sweep_blocks_bayesr with the inner
-    rounds in the resident-Gram BayesR kernel. Same inputs, same draws,
-    same outputs (identical sync-round key derivation)."""
-    from jwas_tpu.ops import markers as mk
-
-    b, _, nblocks = md.grams.shape
-    dtype = ycorr.dtype
-    log_pi = jnp.transpose(
-        jnp.log(jnp.clip(pi.astype(dtype), 1e-12, 1.0)).reshape(nblocks, b, 4),
-        (1, 0, 2),
-    )  # (b, nblocks, 4)
-    xpx_b = mk._to_jmajor(md.xpx, nblocks, b)
-    inv_vare = 1.0 / vare
-
-    def round_fn(stt, kr, reps):
-        alpha_b, delta_b, ycorr = stt
-        w = ycorr if rinv is None else rinv * ycorr
-        rhs0 = mk._to_jmajor(md.X.T @ w, nblocks, b)
-        kg, kz = jax.random.split(kr)
-        alpha_start = alpha_b
-        alpha_b, delta_b, _ = bayesr_inner_rounds_pallas(
-            md.grams, xpx_b, log_pi, alpha_b, delta_b, rhs0,
-            inv_vare, sigma_sq, kg, kz, nreps=reps, interpret=interpret,
-        )
-        ycorr = ycorr + md.X @ mk._from_jmajor(alpha_start - alpha_b)
-        return (alpha_b, delta_b, ycorr)
-
-    alpha_b, delta_b, ycorr = mk._sync_rounds(
-        nreps, sync_every, key, round_fn,
-        (mk._to_jmajor(alpha, nblocks, b), mk._to_jmajor(delta, nblocks, b),
-         ycorr),
-    )
-    return mk._from_jmajor(alpha_b), mk._from_jmajor(delta_b), ycorr
-
-
-def sweep_blocks_abc_pallas(md, alpha, beta, delta, ycorr, rinv, vare,
-                            var_eff, pi, key, nreps: int = 1,
-                            sync_every=None, interpret: bool = False):
-    """Drop-in replacement for markers.sweep_blocks_abc with the inner rounds
-    running in the Pallas kernel. Same inputs, same draws, same outputs
-    (including identical sync-round key derivation)."""
-    from jwas_tpu.ops import markers as mk
-
-    b, _, nblocks = md.grams.shape
-    dtype = ycorr.dtype
-    var_eff_b = mk._to_jmajor(
-        jnp.broadcast_to(jnp.asarray(var_eff, dtype), (nblocks * b,)), nblocks, b
-    )
-    pi_c = jnp.clip(pi.astype(dtype), 1e-10, 1.0)
-    log_pi = mk._to_jmajor(jnp.log(pi_c), nblocks, b)
-    log_pi_comp = mk._to_jmajor(jnp.log1p(-pi_c + 1e-12), nblocks, b)
-    xpx_b = mk._to_jmajor(md.xpx, nblocks, b)
-
-    def round_fn(stt, kr, reps):
-        alpha_b, beta_b, delta_b, ycorr = stt
-        w = ycorr if rinv is None else rinv * ycorr
-        rhs0 = mk._to_jmajor(md.X.T @ w, nblocks, b)
-        ku, kz = jax.random.split(kr)
-        us = jax.random.uniform(ku, (reps * b, nblocks), dtype=dtype)
-        zs = jax.random.normal(kz, (reps * b, nblocks), dtype=dtype)
-        alpha_start = alpha_b
-        alpha_b, beta_b, delta_b, _ = abc_inner_rounds_pallas(
-            md.grams, xpx_b, var_eff_b, log_pi, log_pi_comp,
-            alpha_b, beta_b, delta_b, rhs0, us, zs, 1.0 / vare,
-            nreps=reps, interpret=interpret,
-        )
-        ycorr = ycorr + md.X @ mk._from_jmajor(alpha_start - alpha_b)
-        return (alpha_b, beta_b, delta_b, ycorr)
-
-    alpha_b, beta_b, delta_b, ycorr = mk._sync_rounds(
-        nreps, sync_every, key, round_fn,
-        (mk._to_jmajor(alpha, nblocks, b), mk._to_jmajor(beta, nblocks, b),
-         mk._to_jmajor(delta, nblocks, b), ycorr),
-    )
-    return (
-        mk._from_jmajor(alpha_b),
-        mk._from_jmajor(beta_b),
-        mk._from_jmajor(delta_b),
-        ycorr,
-    )
+    return tuple(o[:nblocks, :b].T for o in out)

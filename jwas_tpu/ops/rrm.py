@@ -12,8 +12,8 @@ src/1.JWAS/src/RRM/RRM.jl):
   coefficients over the 2^c inclusion labels, with the working residual kept
   on the (ntimes, nind) grid (BayesABCRRM!, RRM.jl:59-159).
 
-TPU design: the label loop is a batched (2^c, c, c) Cholesky factorization on
-the VPU/MXU; the marker loop is a `lax.scan` whose per-step residual update is
+Device design: the label loop is a batched (2^c, c, c) Cholesky
+factorization; the marker loop is a `lax.scan` whose per-step residual update is
 a rank-1 (ntimes x nind) outer product, the direct analogue of the reference's
 per-time axpy chain.
 """

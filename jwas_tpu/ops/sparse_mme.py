@@ -6,7 +6,7 @@ src/1.JWAS/src/iterative_solver/solver.jl:105-162, sparse assembly
 build_MME.jl:300-382), which is what makes single-step analyses with
 hundreds of thousands of pedigree animals feasible (SSBR.jl:22-53 adds an
 imputation-residual term with sparse Vinv = A_nn). A dense (K, K) LHS is
-1 TB at K = 5e5 — the TPU-native answer is not a sparse matrix type (XLA
+1 TB at K = 5e5 — the accelerator's answer is not a sparse matrix type (XLA
 has none worth using) but a MATRIX-FREE operator:
 
     A x = W' R^-1 (W x) + sum_g (Gi_g ⊗ Vinv_g) x * vare        (lambda-MME)
@@ -15,7 +15,8 @@ with W and each Vinv held as padded COO index/value arrays; matvecs lower
 to gathers + scatter-adds, which XLA fuses and runs at memory bandwidth.
 
 Sampling: the reference's sequential single-site Gibbs pass is a scalar
-chain over K coordinates — the worst possible shape for a TPU at large K.
+chain over K coordinates — the worst possible shape for an accelerator at
+large K.
 We replace it with an exact JOINT draw via perturbation-optimization
 (Papandreou & Yuille 2010; standard in large GMRF samplers): with
 A = W'R^-1 W + P where the prior precision P = sum_g Gi_g ⊗ Vinv_g * vare

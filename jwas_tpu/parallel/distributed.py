@@ -2,12 +2,12 @@
 
 The reference is strictly single-process — no MPI/NCCL/Distributed.jl
 anywhere (SURVEY.md §2.9: "Distributed communication backend: none").
-This module is the TPU-native scaling layer the reference lacks:
+This module is the multi-device scaling layer the reference lacks:
 
-- `initialize_multihost` brings up `jax.distributed` (DCN process
-  coordination) so `jax.devices()` spans every host in the slice; the
-  math itself still communicates only through XLA collectives over ICI,
-  inserted from the NamedShardings in `jwas_tpu.parallel.mesh`.
+- `initialize_multihost` brings up `jax.distributed` (process
+  coordination) so `jax.devices()` spans every process; the math itself
+  communicates only through XLA collectives, inserted from the
+  NamedShardings in `jwas_tpu.parallel.mesh`.
 - `load_packed_global` builds GLOBAL marker-sharded `jax.Array`s from a
   saved 2-bit packed store (`Packed2BitStore.save`, io/packed.py) with
   **each process reading only the byte ranges of its own shards**: the
@@ -21,7 +21,7 @@ This module is the TPU-native scaling layer the reference lacks:
   markers from different blocks, so there is no cross-shard term).
 
 The same code runs unchanged on one host with N local devices (the test
-configuration: 8 virtual CPU devices) and on a multi-host pod slice;
+configuration: 8 virtual CPU devices) and across several processes;
 `jax.make_array_from_callback` only invokes the loader for addressable
 shards in both cases.
 """
@@ -42,21 +42,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 _initialized = False
 
 
-def _pod_env_markers_present() -> bool:
-    """True when the environment indicates a multi-host TPU pod launch even
-    without JAX_COORDINATOR_ADDRESS — jax.distributed.initialize() then
-    performs its cloud-TPU metadata auto-detection. TPU_WORKER_HOSTNAMES
-    counts only when it lists >= 2 hosts (single-host images set it to
-    'localhost')."""
-    hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    if len([h for h in hosts.split(",") if h.strip()]) >= 2:
-        return True
-    return any(
-        os.environ.get(k)
-        for k in ("MEGASCALE_COORDINATOR_ADDRESS", "CLOUD_TPU_TASK_ID")
-    )
-
-
 def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -66,12 +51,10 @@ def initialize_multihost(
 ) -> bool:
     """Bring up `jax.distributed` for a multi-host run.
 
-    Configuration comes from the arguments or, when omitted, from the
-    standard env vars JAX already honors (JAX_COORDINATOR_ADDRESS) or the
-    multi-host TPU pod markers (TPU_WORKER_HOSTNAMES / MEGASCALE_* /
-    CLOUD_TPU_TASK_ID), in which case `jax.distributed.initialize()` runs
-    its cloud-TPU metadata auto-detection. `force=True` calls initialize()
-    unconditionally. Returns False (no-op) when nothing indicates a
+    Configuration comes from the arguments or, when omitted, from
+    JAX_COORDINATOR_ADDRESS; num_processes and process_id are then needed
+    as arguments or in JAX's own environment variables, since nothing
+    detects a cluster. `force=True` calls initialize() unconditionally. Returns False (no-op) when nothing indicates a
     multi-process launch — single-host runs never pay the bring-up, and
     calling this unconditionally at the top of a driver script is safe.
     """
@@ -81,11 +64,10 @@ def initialize_multihost(
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
     )
-    if (coordinator_address is None and num_processes is None
-            and not _pod_env_markers_present() and not force):
+    if coordinator_address is None and num_processes is None and not force:
         return False
     # private API: a jax upgrade may move this symbol; degrade to "attempt
-    # the bring-up anyway" rather than failing every pod launch on import
+    # the bring-up anyway" rather than failing every launch on import
     try:
         from jax._src import xla_bridge
 
@@ -98,7 +80,8 @@ def initialize_multihost(
         warnings.warn(
             "jax.distributed bring-up skipped: the XLA backend is already "
             "initialized. Call jwas_tpu.parallel.initialize_multihost() (or "
-            "runMCMC) before any other JAX computation on multi-host pods."
+            "runMCMC) before any other JAX computation in multi-process "
+            "runs."
         )
         return False
     kwargs = {}
@@ -199,6 +182,7 @@ def sharded_packed_markers(
     except ImportError:  # pragma: no cover - older jax
         from jax.experimental.shard_map import shard_map
 
+    from jwas_tpu.ops.markers import gram_tiles
     from jwas_tpu.ops.packed import PackedMarkers, decode_tile
 
     b = block_size
@@ -233,8 +217,8 @@ def sharded_packed_markers(
             X = decode_tile(rows, mns, rp_l, dtype, n_obs=n_obs)
             Xb = X.reshape(n_obs, chunk_blk, b)
             Xw = Xb if rv_l is None else Xb * rv_l[:, None, None]
-            g = jnp.einsum("nkb,nkc->bck", Xw, Xb)
-            xpx = jnp.einsum("nkb,nkb->kb", Xw, Xb).reshape(-1)
+            g = gram_tiles(Xb, Xw)
+            xpx = jnp.sum(Xw * Xb, axis=0).reshape(-1)
             return None, (g, xpx)
 
         _, (gs, xs) = jax.lax.scan(

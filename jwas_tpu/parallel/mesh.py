@@ -2,15 +2,15 @@
 
 The scaling design (SURVEY.md §7, BASELINE north star): shard the n x p
 genotype matrix **column-wise** (marker axis) across chips and run the blocked
-Gibbs sweep on local marker blocks — the TPU equivalent of the reference's
-`independent_blocks=true` thread parallelism (BayesABC.jl:190-255), with the
-shared residual reconciled by an XLA-inserted psum in the `X @ d_alpha` GEMM.
+Gibbs sweep on local marker blocks — the multi-device equivalent of the
+reference's `independent_blocks=true` thread parallelism
+(BayesABC.jl:190-255), with the shared residual reconciled by an XLA-inserted psum in the `X @ d_alpha` GEMM.
 Multiple chains shard across the "chain" mesh axis (new capability vs the
 reference, which is single-process; SURVEY.md §2.9 P6).
 
 No collectives are written by hand: the step function is pure JAX, and
 `jax.jit` with these shardings makes XLA insert the reduce over the marker
-axis. The same step runs unchanged on 1 chip or a pod slice.
+axis. The same step runs unchanged on one device or several.
 """
 
 from __future__ import annotations

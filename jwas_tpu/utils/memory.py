@@ -5,19 +5,17 @@ src/1.JWAS/src/tools4genotypes.jl:99-235, invoked from JWAS.jl:414-459):
 estimate the marker-path bytes before compiling the chain and error/warn when
 they exceed `memory_guard_ratio` of the accelerator's memory.
 
-TPU re-design: the budget is HBM (per chip), read from
-`jax.local_devices()[0].memory_stats()` when the backend exposes it
-(CPU backends do not; a 16 GiB default stands in), and the estimate covers
-the device-resident arrays our engines actually stage: the dense centered
-genotype matrix (padded), the per-block Gram stack of the fast-blocks sweep,
-the output-genotype rows, and the location design.
+The budget is the memory of one device, `bytes_limit` of its
+`memory_stats()` (utils/backend.device_memory_bytes; only the CPU backend,
+which reports none, falls back to `JWAS_HBM_BYTES` or 16 GiB), and the
+estimate covers the device-resident arrays our engines actually stage: the
+dense centered genotype matrix (padded), the per-block Gram stack of the
+fast-blocks sweep, the output-genotype rows, and the location design.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-
-_DEFAULT_HBM_BYTES = 16 * 1024**3
 
 
 def format_bytes_human(nbytes: float) -> str:
@@ -44,19 +42,6 @@ class MarkerMemoryEstimate:
             self.bytes_genotypes + self.bytes_grams + self.bytes_output
             + self.bytes_design
         )
-
-
-def device_memory_bytes() -> int:
-    """Per-chip memory budget; HBM limit when the backend reports it."""
-    try:
-        import jax
-
-        stats = jax.local_devices()[0].memory_stats()
-        if stats and "bytes_limit" in stats:
-            return int(stats["bytes_limit"])
-    except Exception:
-        pass
-    return _DEFAULT_HBM_BYTES
 
 
 def estimate_marker_memory(
@@ -105,7 +90,11 @@ def check_marker_memory_guard(
         raise ValueError("memory_guard must be 'error', 'warn', or 'off'")
     if policy == "off":
         return
-    budget = total_bytes if total_bytes is not None else device_memory_bytes()
+    if total_bytes is None:
+        from jwas_tpu.utils.backend import device_memory_bytes
+
+        total_bytes = device_memory_bytes()
+    budget = total_bytes
     limit = ratio * budget
     if estimate.bytes_total <= limit:
         return
@@ -115,7 +104,7 @@ def check_marker_memory_guard(
         f"block Grams {format_bytes_human(estimate.bytes_grams)}, "
         f"output rows {format_bytes_human(estimate.bytes_output)}) exceeds "
         f"{ratio:.0%} of device memory {format_bytes_human(budget)}; "
-        "reduce fast_blocks block size, use storage='int8', or shard over more chips"
+        "reduce fast_blocks block size, use storage='int8' or '2bit', or shard over more devices"
     )
     if policy == "error":
         raise MemoryError(msg)

@@ -1,5 +1,5 @@
 // 2-bit genotype packer/decoder — the native host-side component of the
-// packed marker store (the TPU-era counterpart of the reference's streaming
+// packed marker store (the counterpart of the reference's streaming
 // backend, reference: src/1.JWAS/src/markers/streaming_genotypes.jl:204-452,
 // whose hot conversion loops are pure Julia; here they are C++ exposed to
 // Python through ctypes).

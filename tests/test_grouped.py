@@ -136,8 +136,9 @@ def test_single_group_equals_flat_packed_sweep():
 
 def test_grouped_host_store_bit_equal_device_store():
     """host_store=True must stream the same bits: outputs are identical to
-    the device-resident store (on backends without a pinned_host space the
-    staging is a no-op; on TPU this is the out-of-core equivalence)."""
+    the device-resident store (on backends that cannot stage pinned-host
+    memory the store stays on the device; on a GPU this is the out-of-core
+    equivalence, also checked by chip_smoke.py)."""
     gm, _, X, y, _ = _make_problem(n=40, p=128, b=8, gb=4)  # 4 groups
     st = _init(128, y)
     key = jax.random.PRNGKey(5)
@@ -289,12 +290,16 @@ def test_grouped_sweep_planes_vs_decode_statistics():
     assert np.corrcoef(ebv_p, ebv_d)[0, 1] > 0.98
 
 
-def test_runmcmc_host_offload_end_to_end():
-    """host_offload_genotypes=True routes runMCMC through the grouped
-    streaming sweep end-to-end; posterior accuracy matches the device path
-    (the runtime analogue of the reference's streaming driver,
-    streaming_genotypes.jl:978-1027)."""
+def test_runmcmc_host_offload_end_to_end(monkeypatch):
+    """host_offload_genotypes routes runMCMC through the grouped streaming
+    sweep end-to-end (the runtime analogue of the reference's streaming
+    driver, streaming_genotypes.jl:978-1027). True on a backend that cannot
+    stage pinned-host memory in a jitted sweep (the CPU) raises instead of
+    quietly keeping the store on the device; "auto" there runs the
+    device-resident grouped sweep; True with staging available takes the
+    out-of-core path (CPU stands in for the staging here)."""
     from jwas_tpu import build_model, get_genotypes, runMCMC
+    from jwas_tpu.engine import mcmc as eng
     from jwas_tpu.io.datasets import simulate_genomic_data
     from jwas_tpu.io.packed import prepare_packed_genotypes
 
@@ -302,10 +307,20 @@ def test_runmcmc_host_offload_end_to_end():
     store = prepare_packed_genotypes(sim["genotypes"])
     geno = get_genotypes(store, method="BayesC", name="geno")
     model = build_model("y = intercept + geno", genotypes=geno)
+    assert not gr.host_memory_supported()
+    with pytest.raises(ValueError, match="host_offload_genotypes=True"):
+        runMCMC(model, sim["phenotypes"], chain_length=600, burnin=150,
+                seed=5, output_folder="", host_offload_genotypes=True)
     out = runMCMC(model, sim["phenotypes"], chain_length=600, burnin=150,
-                  seed=5, output_folder="", host_offload_genotypes=True)
+                  seed=5, output_folder="", host_offload_genotypes="auto")
     acc = np.corrcoef(out["EBV_y"].EBV, sim["true_bv"])[0, 1]
-    assert acc > 0.85, f"grouped out-of-core BayesC EBV accuracy {acc:.3f}"
+    assert acc > 0.85, f"grouped BayesC EBV accuracy {acc:.3f}"
+    # the decision itself where staging exists: True offloads, "auto"
+    # offloads only past 60% of the device budget
+    monkeypatch.setattr(gr, "host_memory_supported", lambda: True)
+    assert eng._resolve_host_offload(True, 10) is True
+    assert eng._resolve_host_offload("auto", 10) is False
+    assert eng._resolve_host_offload(False, 1 << 60) is False
 
 
 # ---------------------------------------------------------------------------
@@ -416,8 +431,8 @@ def test_bayesr_grouped_multigroup_accuracy():
 
 def test_grouped_pallas_matches_xla_abc_and_bayesr():
     """use_pallas=True (interpret) reproduces the XLA grouped sweeps exactly
-    for both the spike-slab and the BayesR kernels (2 sequential groups,
-    gb=128 = the kernel lane quantum)."""
+    for both the spike-slab and the BayesR kernels (2 sequential groups of
+    128 blocks)."""
     gm, pm, X, y, _ = _make_problem(n=40, p=8 * 256, b=8, gb=128, seed=9)
     p = X.shape[1]
     st = _init(p, y)
@@ -447,15 +462,15 @@ def test_grouped_pallas_matches_xla_abc_and_bayesr():
 
 
 def test_runmcmc_packed_bayesr_end_to_end():
-    """runMCMC with storage='2bit' + BayesR routes through the packed BayesR
-    sweeps (grouped when host-offloaded) and recovers the signal."""
+    """runMCMC with storage='2bit' + BayesR routes through the grouped
+    BayesR sweep (offload off, and "auto") and recovers the signal."""
     from jwas_tpu import build_model, get_genotypes, runMCMC
     from jwas_tpu.io.datasets import simulate_genomic_data
     from jwas_tpu.io.packed import prepare_packed_genotypes
 
     sim = simulate_genomic_data(n=400, p=150, n_qtl=15, h2=0.6, seed=78)
     store = prepare_packed_genotypes(sim["genotypes"])
-    for offload in (False, True):
+    for offload in (False, "auto"):
         geno = get_genotypes(store, method="BayesR", name="geno")
         model = build_model("y = intercept + geno", genotypes=geno)
         out = runMCMC(model, sim["phenotypes"], chain_length=600, burnin=150,
@@ -505,8 +520,8 @@ def test_plan_device_groups_budget():
 
 
 def test_pick_stable_blocks_caps_stale_set():
-    """The parallel-stale set b*gb never exceeds STALE_FRACTION * n; the
-    kernel's 128-block lane quantum is kept by shrinking b when possible."""
+    """The parallel-stale set b*gb never exceeds STALE_FRACTION * n; 128
+    blocks per group are kept by shrinking b when possible."""
     for n, b_req, p in [(50_000, 224, 2_097_152), (25_000, 158, 1_048_576),
                         (12_000, 112, 1_048_576), (2_000, 48, 100_000),
                         (400, 24, 150), (300, 24, 5_000)]:
@@ -518,7 +533,7 @@ def test_pick_stable_blocks_caps_stale_set():
         assert b >= 8 and b % 8 == 0
         assert gb >= 1
         if n >= 2_560 and -(-p // 8) >= 128:
-            assert gb == 128, (n, p, b, gb)   # kernel quantum preserved
+            assert gb == 128, (n, p, b, gb)   # tuned geometry preserved
 
 
 def test_runmcmc_device_packed_routes_grouped():
@@ -571,7 +586,7 @@ def test_materialize_grouped_host_roundtrip():
 # must take the store as a TRACED argument. Closing over a pinned-host store
 # captures it as a lowering constant (26 GB at the north-star shape) — the
 # exact bug class that broke hybridize/out-of-core runMCMC in round 4. This
-# runs on CPU (tracing does not need TPU memory spaces).
+# runs on CPU (tracing does not need pinned-host memory).
 # ---------------------------------------------------------------------------
 
 _CONST_LIMIT_BYTES = 1 << 20  # 1 MB

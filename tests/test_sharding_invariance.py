@@ -94,8 +94,7 @@ def test_full_step_chain_sharded_matches_unsharded():
 
 
 def test_runmcmc_chains_by_markers_mesh():
-    """End-to-end: 2 chains x 4 marker shards through the public API
-    (VERDICT r1 item 3b)."""
+    """End-to-end: 2 chains x 4 marker shards through the public API."""
     from jwas_tpu import build_model, get_genotypes, runMCMC
     from jwas_tpu.io.datasets import simulate_genomic_data
 

@@ -3,7 +3,7 @@ PO-CG draw moments, and end-to-end engine equivalence.
 
 The reference runs its location Gibbs on a sparse LHS
 (src/1.JWAS/src/iterative_solver/solver.jl:105-162, assembly
-build_MME.jl:300-382); ops/sparse_mme.py is the TPU-native analogue
+build_MME.jl:300-382); ops/sparse_mme.py is the accelerator analogue
 (matrix-free operators + joint perturbation-optimization CG draws).
 """
 
